@@ -1,0 +1,210 @@
+"""Projective semantic TSDF integrator, the main path.
+
+Counterpart: kimera_semantics_tpu/models/projective.py (integrate_frame,
+integrate_frames, candidates_from_atlas, allocate_from_atlas,
+insert_candidates, apply_frame, ProjectiveSemanticTsdfIntegrator). Per
+frame:
+
+  1. mip atlas of the depth/label/color images      (ops/mip.py)
+  2. allocation: a block-granularity DDA over the atlas level
+     log2(alloc_stride) finds every block a ray corridor crosses
+     (K1, ops/kernels.py dda_job_stream), and a batch hash insert yields the
+     frame's group-aligned touched-block list (grid/hash.py)
+  3. per-block mip level and patch origin            (K2, block_meta)
+  4. per-voxel sample + update, added in place       (K3,
+     projective_apply_fused)
+
+On CUDA tensors K1-K3 are the hand-written kernels; on CPU tensors their
+plain versions. The JAX integrator takes the grid as a donated buffer and
+returns a new one; this one updates the grid's channel tensors IN PLACE and
+returns the same VoxelGrid object with its hash-table fields replaced.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..config import ColorMode, FusionConfig
+from ..core import camera as cam
+from ..core import transforms
+from ..core.camera import PinholeIntrinsics
+from ..device import check_on, resolve
+from ..grid import hash as bhash
+from ..grid.blocks import VoxelGrid
+from ..ops import kernels
+from ..ops import mip as mip_ops
+from ..ops import raycast
+from ..ops import semantic as sem_ops
+from ..ops import tsdf as tsdf_ops
+from . import common
+
+# Largest vps^3 the fused apply takes, as in the JAX package; larger blocks
+# (vps = 32 literal storage) and fused_apply=False take the unfused
+# sample + block-add kernels, which a later slice ports.
+FUSED_MAX_V3 = 8192
+
+# Profiler ranges around the stages of integrate_frame, named
+# "integrate_frame/<stage>"; a torch.profiler trace of the frame loop reads
+# each stage's time from them (chip_smoke.py).
+STAGES = ("atlas", "candidates", "insert", "meta", "apply")
+
+
+def _stage(name: str):
+    return torch.profiler.record_function(f"integrate_frame/{name}")
+
+
+def make_plan(cfg: FusionConfig, intr: PinholeIntrinsics) -> mip_ops.MipPlan:
+    return mip_ops.make_plan(intr.height, intr.width,
+                             cfg.pipeline.patch_rows, cfg.pipeline.patch_cols)
+
+
+def alloc_steps(cfg: FusionConfig) -> int:
+    """Static step budget of the block-granularity DDA."""
+    g, t = cfg.grid, cfg.tsdf
+    return int(math.ceil(1.7321 * (t.max_ray_length_m + t.truncation_distance)
+                         / g.block_size)) + 3
+
+
+def candidates_from_atlas(atlas: torch.Tensor, T_G_C: torch.Tensor,
+                          cfg: FusionConfig, intr: PinholeIntrinsics, plan):
+    """Candidate block keys for one frame from its mip atlas: (keys (S, R)
+    int32, -1 where invalid; valid (S, R) bool). Runs K1 at block
+    granularity."""
+    keys, _, _, _, _, valid, _, _ = kernels.dda_job_stream(
+        *candidate_jobs(atlas, T_G_C, cfg, intr, plan))
+    return keys, valid
+
+
+def candidate_jobs(atlas: torch.Tensor, T_G_C: torch.Tensor,
+                   cfg: FusionConfig, intr: PinholeIntrinsics, plan):
+    """The arguments of K1 (ops/kernels.py dda_job_stream) for the frame's
+    block-granularity allocation walk: one ray per pixel of the atlas level
+    log2(alloc_stride), over world-unit extents, with a config view of
+    voxel_size = block_size and vps = 1."""
+    stride = cfg.pipeline.alloc_stride
+    lvl = int(math.log2(stride)) if stride > 1 else 0
+    if (1 << lvl) != stride:
+        raise ValueError("alloc_stride must be a power of two")
+    lvl = min(lvl, plan.num_levels - 1)
+    H, W, off = plan.heights[lvl], plan.widths[lvl], plan.offsets[lvl]
+    depth = atlas[0, :H, off:off + W]
+    labels = torch.round(atlas[1, :H, off:off + W]).to(torch.int32).reshape(-1)
+    px_ok = depth < mip_ops.DEPTH_SENTINEL * 0.5
+    depth = torch.where(px_ok, depth, 0.0)
+    pts_C, px_valid = cam.backproject(depth, intr.scaled(W, H))
+
+    g, t = cfg.grid, cfg.tsdf
+    valid, is_clearing = tsdf_ops.point_validity(pts_C, t)
+    valid = valid & px_valid & sem_ops.dynamic_label_mask(labels, cfg.semantic)
+    pts_G = transforms.apply(T_G_C, pts_C)
+    origin = transforms.translation(T_G_C)
+    start_w, end_w = raycast.setup_rays(
+        origin[None, :], pts_G, is_clearing, voxel_size=1.0,
+        truncation_distance=t.truncation_distance,
+        max_ray_length_m=t.max_ray_length_m,
+        voxel_carving_enabled=t.voxel_carving_enabled)
+    cfg_b = dataclasses.replace(cfg, grid=dataclasses.replace(
+        g, voxel_size=g.block_size, voxels_per_side=1))
+    R = pts_G.shape[0]
+    soa = lambda a: a.T.contiguous()  # noqa: E731
+    return (cfg_b, alloc_steps(cfg), soa(origin.expand(R, 3)), soa(pts_G),
+            soa(start_w), soa(end_w),
+            torch.ones((R,), dtype=torch.float32, device=pts_G.device), valid)
+
+
+def insert_candidates(grid: VoxelGrid, keys, active, cfg: FusionConfig):
+    """Frame-list insert of candidate keys; replaces the grid's hash-table
+    fields. Returns (grid, fcoords, fslots, freal)."""
+    g = cfg.grid
+    tk, ts, bc, nb, ov, fcoords, fslots, freal = bhash.insert_frame_list(
+        grid.table_keys, grid.table_slots, grid.block_coords, grid.n_blocks,
+        keys.reshape(-1), active.reshape(-1), g.table_size, g.block_capacity,
+        g.world_extent_blocks, cfg.pipeline.block_budget)
+    grid.table_keys, grid.table_slots, grid.block_coords = tk, ts, bc
+    grid.n_blocks = nb
+    grid.overflow = grid.overflow + ov
+    return grid, fcoords, fslots, freal
+
+
+def allocate_from_atlas(grid: VoxelGrid, atlas, T_G_C, cfg: FusionConfig,
+                        intr: PinholeIntrinsics, plan):
+    with _stage("candidates"):
+        keys, valid = candidates_from_atlas(atlas, T_G_C, cfg, intr, plan)
+    with _stage("insert"):
+        return insert_candidates(grid, keys, valid, cfg)
+
+
+def apply_frame(grid: VoxelGrid, atlas, T_G_C, fcoords, fslots, freal,
+                cfg: FusionConfig, intr: PinholeIntrinsics, plan,
+                region: str = "all") -> VoxelGrid:
+    """Sample + update the listed blocks from one frame's atlas, in place:
+    K2 (block_meta) then K3 (projective_apply_fused)."""
+    g = cfg.grid
+    if not cfg.pipeline.fused_apply or g.vps3 > FUSED_MAX_V3:
+        raise NotImplementedError(
+            "the unfused projective apply (fused_apply=False, or vps^3 > "
+            f"{FUSED_MAX_V3}) needs the projective_sample_update and "
+            "block_rmw_add kernels, which are not ported yet")
+    with _stage("meta"):
+        T_C_G = transforms.inverse(T_G_C)
+        meta = kernels.block_meta(fcoords, freal, T_C_G, intr, plan,
+                                  g.block_size)
+    with _stage("apply"):
+        kernels.projective_apply_fused(
+            grid.wsum, grid.wsdf, grid.sem_count, grid.sem_delta, grid.wcolor,
+            fslots, meta, T_C_G, atlas, cfg, intr, plan,
+            lk_delta=sem_ops.make_likelihood_cached(cfg).delta,
+            with_color=cfg.semantic.color_mode == ColorMode.COLOR,
+            region=region)
+        grid.updated[fslots[freal].long()] = True
+    return grid
+
+
+def integrate_frame(grid: VoxelGrid, frame: common.Frame, cfg: FusionConfig,
+                    intr: PinholeIntrinsics, device="cuda") -> VoxelGrid:
+    """One full projective frame update. The grid is updated IN PLACE (the
+    JAX counterpart donates it) and returned.
+
+    `device` defaults to the card and must be where the grid and frame
+    lie; it raises when it names CUDA and no card is present."""
+    dev = resolve(device)
+    check_on(dev, grid=grid.wsum, depth=frame.depth, T_G_C=frame.T_G_C)
+    plan = make_plan(cfg, intr)
+    with _stage("atlas"):
+        atlas = mip_ops.build_atlas(frame.depth, frame.labels, frame.colors,
+                                    plan)
+    grid, fcoords, fslots, freal = allocate_from_atlas(
+        grid, atlas, frame.T_G_C, cfg, intr, plan)
+    return apply_frame(grid, atlas, frame.T_G_C, fcoords, fslots, freal, cfg,
+                       intr, plan)
+
+
+def integrate_frames(grid: VoxelGrid, frames: common.Frame,
+                     cfg: FusionConfig, intr: PinholeIntrinsics,
+                     device="cuda") -> VoxelGrid:
+    """Integrate B frames in order, in place. `frames` is a Frame whose
+    tensors carry a leading batch axis (B, ...), as in the JAX package;
+    here the frames run one after another in a Python loop."""
+    for b in range(frames.depth.shape[0]):
+        grid = integrate_frame(
+            grid, common.Frame(frames.depth[b], frames.labels[b],
+                               frames.colors[b], frames.T_G_C[b]),
+            cfg, intr, device=device)
+    return grid
+
+
+class ProjectiveSemanticTsdfIntegrator:
+    """Object-style API."""
+
+    def __init__(self, cfg: FusionConfig, intr: PinholeIntrinsics,
+                 device="cuda"):
+        self.cfg = cfg
+        self.intr = intr
+        self.device = resolve(device)
+
+    def integrate(self, grid: VoxelGrid, frame: common.Frame) -> VoxelGrid:
+        return integrate_frame(grid, frame, self.cfg, self.intr,
+                               device=self.device)

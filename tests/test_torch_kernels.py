@@ -1,0 +1,262 @@
+"""The port's kernels (kimera_semantics_tpu_torch/ops/kernels.py) against the
+JAX package: each plain version vs the Pallas kernel it replaces, run
+interpreted on the CPU, and vs the JAX package's XLA path. The CUDA kernels
+themselves are held against their plain versions in test_torch_cuda.py."""
+
+import dataclasses
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from kimera_semantics_tpu import config as jcfg
+from kimera_semantics_tpu.core import transforms as jtr
+from kimera_semantics_tpu.core.camera import PinholeIntrinsics
+from kimera_semantics_tpu.core.color import LabelColorMap
+from kimera_semantics_tpu.grid import blocks as jblocks
+from kimera_semantics_tpu.io.dataset import SyntheticDataset
+from kimera_semantics_tpu.models import projective as jproj_model
+from kimera_semantics_tpu.ops import mip as jmip
+from kimera_semantics_tpu.ops import pallas_kernels as pk
+from kimera_semantics_tpu.ops import projective as jproj
+from kimera_semantics_tpu.ops import raycast as jray
+from kimera_semantics_tpu.ops.integrate import make_likelihood_cached
+
+from kimera_semantics_tpu_torch import config as tcfg
+from kimera_semantics_tpu_torch.core import camera as tcam
+from kimera_semantics_tpu_torch.grid import blocks as tblocks
+from kimera_semantics_tpu_torch.ops import kernels
+from kimera_semantics_tpu_torch.ops import mip as tmip
+from kimera_semantics_tpu_torch.ops import projective as tproj
+
+INTR = PinholeIntrinsics(fx=60.0, fy=60.0, cx=39.5, cy=29.5, width=80,
+                         height=60)
+TINTR = tcam.PinholeIntrinsics(**INTR.__dict__)
+
+
+def configs(carving=True, color=False, **grid):
+    """The same small configuration in both packages."""
+    out = []
+    for m in (jcfg, tcfg):
+        out.append(m.FusionConfig(
+            grid=m.GridConfig(**{**dict(voxel_size=0.25, voxels_per_side=8,
+                                        block_capacity=768), **grid}),
+            tsdf=m.TsdfConfig(truncation_distance=0.5, max_ray_length_m=8.0,
+                              voxel_carving_enabled=carving),
+            semantic=m.SemanticConfig(
+                semantic_measurement_probability=0.8,
+                color_mode=(m.ColorMode.COLOR if color
+                            else m.ColorMode.SEMANTIC)),
+            pipeline=m.PipelineConfig(block_budget=256, alloc_stride=4)))
+    return out
+
+
+def T(x):
+    return torch.from_numpy(np.array(x))
+
+
+def N(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def dda_inputs(cfg_j, R=512, seed=0):
+    """K1 inputs: rays from one origin to random surface points, a third
+    of them beyond max_ray (clearing rays), world-unit extents."""
+    rng = np.random.RandomState(seed)
+    origin = rng.uniform(-1, 1, 3).astype(np.float32)
+    dirs = rng.randn(R, 3)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dist = rng.uniform(0.3, 11.0, R)
+    pts = (origin + dirs * dist[:, None]).astype(np.float32)
+    clearing = dist > cfg_j.tsdf.max_ray_length_m
+    t = cfg_j.tsdf
+    start, end = jax.jit(functools.partial(
+        jray.setup_rays, voxel_size=1.0,
+        truncation_distance=t.truncation_distance,
+        max_ray_length_m=t.max_ray_length_m,
+        voxel_carving_enabled=t.voxel_carving_enabled))(origin, pts, clearing)
+    weights = rng.uniform(0.1, 2.0, R).astype(np.float32)
+    valid = rng.rand(R) > 0.1
+    o3 = np.repeat(origin[:, None], R, axis=1)
+    return (o3, pts.T.copy(), N(start).T.copy(), N(end).T.copy(), weights,
+            valid)
+
+
+@pytest.mark.parametrize("carving", [True, False])
+@pytest.mark.parametrize("granularity", ["voxel", "block"])
+def test_dda_plain_matches_pallas(carving, granularity):
+    cj, ct = configs(carving=carving)
+    if granularity == "block":   # the main path's view: one voxel per block
+        cj, ct = (dataclasses.replace(c, grid=dataclasses.replace(
+            c.grid, voxel_size=c.grid.block_size, voxels_per_side=1))
+            for c in (cj, ct))
+    S = 24 if granularity == "block" else 64
+    args = dda_inputs(cj)
+    ref = pk.dda_job_stream(cj, S, *(jnp.asarray(a) for a in args),
+                            interpret=True)
+    got = kernels.dda_job_stream(ct, S, *(T(a) for a in args))
+    names = ("key", "local", "w", "wsdf", "wc", "valid", "run_key", "run_idx")
+    assert bool(np.asarray(ref[5]).any())
+    for name, a, b in zip(names, ref, got):
+        a, b = N(a), N(b)
+        assert a.shape == b.shape, name
+        if name in ("w", "wsdf", "wc"):
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def block_meta_inputs(seed=2, K=128):
+    rng = np.random.RandomState(seed)
+    fcoords = rng.randint(-6, 6, (K, 3)).astype(np.int32)
+    freal = rng.rand(K) > 0.3
+    ang = rng.uniform(0, 2 * np.pi)
+    T_G_C = np.array([[np.cos(ang), 0, np.sin(ang), 0.3],
+                      [np.sin(ang), 0, -np.cos(ang), 0.1],
+                      [0, 1, 0, -0.4], [0, 0, 0, 1]], np.float32)
+    return fcoords, freal, T_G_C
+
+
+@pytest.mark.parametrize("seed", [2, 5])
+def test_block_meta_plain_matches_pallas(seed):
+    """Exact, at a 320x240 camera whose plan has three mip levels."""
+    intr = PinholeIntrinsics(fx=160.0, fy=160.0, cx=159.5, cy=119.5,
+                             width=320, height=240)
+    cj, ct = configs()
+    plan = jmip.make_plan(intr.height, intr.width)
+    tplan = tmip.MipPlan(**plan.__dict__)
+    fcoords, freal, T_G_C = block_meta_inputs(seed)
+    T_C_G = jax.jit(jtr.inverse)(T_G_C)
+    tflat = jnp.zeros((1, 128), jnp.float32).at[0, :12].set(
+        T_C_G[:3, :4].reshape(-1))
+    ref = pk.block_meta(jnp.asarray(fcoords), jnp.asarray(freal), tflat,
+                        intr, plan, cj.grid.block_size, interpret=True)
+    got = kernels.block_meta(T(fcoords), T(freal), T(N(T_C_G)),
+                             tcam.PinholeIntrinsics(**intr.__dict__), tplan,
+                             ct.grid.block_size)
+    assert len(set(N(got)[:, 3].tolist())) > 1   # several levels in play
+    np.testing.assert_array_equal(N(got), N(ref))
+
+
+def frame_atlas(cj, frame_index=2):
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=LabelColorMap.random())
+    fr = ds.frame(frame_index)
+    plan = jmip.make_plan(INTR.height, INTR.width, cj.pipeline.patch_rows,
+                          cj.pipeline.patch_cols)
+    atlas = jax.jit(functools.partial(jmip.build_atlas, plan=plan))(
+        fr.depth, fr.labels, fr.colors)
+    return fr, plan, atlas
+
+
+@pytest.mark.parametrize("region", ["all", "carve"])
+@pytest.mark.parametrize("color", [False, True])
+def test_apply_plain_matches_voxel_deltas(region, color):
+    """K3's plain version (sample terms + index_add_ apply) vs the JAX
+    package's XLA voxel_deltas in gather mode, scattered the same way."""
+    cj, ct = configs(color=color)
+    fr, plan, atlas = frame_atlas(cj)
+    tplan = tmip.MipPlan(**plan.__dict__)
+    # The frame's allocated blocks, then random ones around the scene.
+    _, fc, _, freal = jax.jit(functools.partial(
+        jproj_model.allocate_from_atlas, cfg=cj, intr=INTR, plan=plan))(
+        jblocks.create(cj), atlas, fr.T_G_C)
+    rng = np.random.RandomState(7)
+    K = 48
+    touched = np.asarray(fc)[np.asarray(freal)]
+    bc = np.concatenate([touched, rng.randint(
+        -3, 3, (K - len(touched), 3))]).astype(np.int32)
+    real = np.ones(K, bool)
+    real[-3:] = False
+    d = jax.jit(functools.partial(
+        jproj.voxel_deltas, intr=INTR, plan=plan, cfg=cj,
+        sample_mode="gather", region=region))(bc, real, atlas, fr.T_G_C)
+    dt = tproj.voxel_deltas(T(bc), T(real), T(atlas), T(fr.T_G_C), TINTR,
+                            tplan, ct, region=region)
+    for name, tol in (("w", 1e-5), ("wsdf", 1e-5), ("cnt", 0.0),
+                      ("label", 0.0), ("sem", 1e-6), ("wcolor", 2e-3)):
+        a, b = N(d[name]), N(dt[name])
+        bad = np.abs(b - a) > tol + 1e-4 * np.abs(a)
+        assert not bad.any(), (name, int(bad.sum()))
+    assert N(d["w"]).any()
+
+    # The same deltas applied by K3's plain version into a zero grid.
+    grid = tblocks.create(ct, device="cpu")
+    slots = np.arange(K, dtype=np.int32)
+    T_C_G = T(N(jax.jit(jtr.inverse)(fr.T_G_C)))
+    meta = kernels.block_meta(T(bc), T(real), T_C_G, TINTR, tplan,
+                              ct.grid.block_size)
+    kernels.projective_apply_fused(
+        grid.wsum, grid.wsdf, grid.sem_count, grid.sem_delta, grid.wcolor,
+        T(slots), meta, T_C_G, T(atlas), ct, TINTR, tplan,
+        make_likelihood_cached(cj).delta, with_color=color, region=region)
+    for name, key in (("wsum", "w"), ("wsdf", "wsdf"), ("sem_count", "cnt")):
+        np.testing.assert_array_equal(N(getattr(grid, name))[:K],
+                                      N(d[key]), err_msg=name)
+    np.testing.assert_array_equal(N(grid.sem_delta)[:, :K],
+                                  N(d["sem"]).transpose(1, 0, 2))
+    np.testing.assert_allclose(N(grid.wcolor)[:, :K],
+                               N(d["wcolor"]).transpose(1, 0, 2),
+                               rtol=1e-6, atol=1e-6)
+    assert not N(grid.wsum)[K:].any()
+
+
+def test_apply_plain_matches_fused_pallas():
+    """K3's plain version vs the Pallas fused kernel run interpreted, on one
+    frame's group-aligned block list. The Pallas kernel samples depth
+    through a bf16 hi/lo split (|err| < depth * 2^-18), so band-edge voxels
+    may flip: |diff| > 1e-3 + 1e-3 |ref| on fewer than 0.5% of voxels."""
+    cj, ct = configs()
+    fr, plan, atlas = frame_atlas(cj, frame_index=1)
+    tplan = tmip.MipPlan(**plan.__dict__)
+    g = jblocks.create(cj)
+    g, fcoords, fslots, freal = jax.jit(functools.partial(
+        jproj_model.allocate_from_atlas, cfg=cj, intr=INTR, plan=plan))(
+        g, atlas, fr.T_G_C)
+    T_C_G = jax.jit(jtr.inverse)(fr.T_G_C)
+    tflat = jnp.zeros((1, 128), jnp.float32).at[0, :12].set(
+        T_C_G[:3, :4].reshape(-1))
+    meta = pk.block_meta(fcoords, freal, tflat, INTR, plan,
+                         cj.grid.block_size, interpret=True)
+    lk = make_likelihood_cached(cj).delta
+    ref = pk.projective_apply_fused(
+        g.wsum, g.wsdf, g.sem_count, g.sem_delta, g.wcolor, fslots, meta,
+        tflat, atlas, cj, INTR, plan, lk_delta=lk, interpret=True)
+    grid = tblocks.create(ct, device="cpu")
+    got = kernels.projective_apply_fused(
+        grid.wsum, grid.wsdf, grid.sem_count, grid.sem_delta, grid.wcolor,
+        T(fslots), T(meta), T(N(T_C_G)), T(atlas), ct, TINTR, tplan, lk)
+    nb = int(g.n_blocks)
+    assert nb > 0
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), ref, got):
+        a, b = N(a), N(b)
+        sl = (slice(None), slice(0, nb)) if a.ndim == 3 else slice(0, nb)
+        bad = np.abs(b[sl] - a[sl]) > 1e-3 + 1e-3 * np.abs(a[sl])
+        assert bad.mean() < 5e-3, (name, bad.mean())
+
+
+def test_patch_sampling_matches():
+    """extract_patches + gather-mode sample_patches, including samples
+    outside the window (they read 0)."""
+    cj, _ = configs(color=True)
+    _, plan, atlas = frame_atlas(cj)
+    tplan = tmip.MipPlan(**plan.__dict__)
+    rng = np.random.RandomState(4)
+    K, V3 = 6, 300
+    v0 = (rng.randint(0, 1, K) * 8).astype(np.int32)
+    u0 = np.zeros(K, np.int32)
+    row = rng.randint(-4, plan.row_window + 4, (K, V3)).astype(np.int32)
+    col = rng.randint(-4, plan.col_window + 4, (K, V3)).astype(np.int32)
+    pj = jproj.extract_patches(atlas, jnp.asarray(u0), jnp.asarray(v0), plan)
+    pt = tproj.extract_patches(T(atlas), T(u0), T(v0), tplan)
+    np.testing.assert_array_equal(N(pt), N(pj))
+    sj = jproj.sample_patches(pj, jnp.asarray(row), jnp.asarray(col),
+                              "gather")
+    st = tproj.sample_patches(pt, T(row), T(col))
+    np.testing.assert_array_equal(N(st), N(sj))
+    assert (N(st)[(row < 0) | (col >= plan.col_window)] == 0).all()
