@@ -10,15 +10,30 @@ Phases, each of which must complete:
   2. hold each kernel of the projective main path against its plain PyTorch
      version on the card, at the main path's shapes, and time both, and
      time an empty kernel (csrc/empty.cu) for the launch floor;
-  3. drive the main path (models/projective.py integrate_frame) at the
-     canonical configuration of bench.py (projective method, 640x480,
-     0.05 m voxels, 16^3 blocks) over 4 warm-up and 24 timed synthetic
-     frames, check that every kernel launched once per frame and that no
-     block overflowed; trace the same loop on a fresh grid with
+  3. drive the projective main path (models/projective.py integrate_frame)
+     at the canonical configuration of bench.py (projective method,
+     640x480, 0.05 m voxels, 16^3 blocks) over 4 warm-up and 24 timed
+     synthetic frames, check that every kernel launched once per frame and
+     that no block overflowed; trace the same loop on a fresh grid with
      torch.profiler for the time of each stage of integrate_frame and the
      device's busy share; then re-run the same frames through the plain
      versions on the card and compare the grids block by block;
-  4. report per-stage times, the kernel table (one JSON line), the card's
+  4. capture the inputs of the ray integrators' kernels from one frame of
+     the fast integrator at bench.py's fast configuration (K1 at voxel
+     granularity, K6 slot_resolve_stream, K5 block_rmw_add in packed
+     staging, and K5 in dense and onehot form at the same rows), hold each
+     against its plain version on the card and time both;
+  5. drive the fast integrator (models/fast.py integrate_frame) at that
+     configuration over 4 warm-up and 24 timed frames, check the launches
+     per frame (K1 twice, K2, K3, K6 and K5 once) and that no block
+     overflowed, trace it for its stages and the device's busy share, and
+     compare the grid block by block with a re-run through the plain
+     versions;
+  6. drive the merged integrator at bench.py's merged configuration over 2
+     warm-up and 8 timed frames, with the same launch and overflow checks,
+     compare its grid block by block with a re-run through the plain
+     versions, and trace it for its stages;
+  7. report per-stage times, the kernel table (one JSON line), the card's
      name and power limit, and last the one-line JSON result.
 
 Exits non-zero, with no result line, on any failure, including when no
@@ -29,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,13 +56,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BANDWIDTH = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 FP32_PEAK = 67e12        # H100 SXM float32 outside the tensor cores, FLOP/s
 WARM_FRAMES = 4          # integrated before the timed frames
-FRAMES = 24              # timed frames of the main path
+FRAMES = 24              # timed frames of the projective and fast paths
+MERGED_WARM = 2          # merged: warm-up and timed frames
+MERGED_FRAMES = 8
 REPS = 50                # launches per kernel timing
 
 # Tolerances of the kernel-vs-plain checks. Both sides run the same float32
 # operations in the same order (fused multiply-adds at the same places), so
 # integer outputs must be bit-exact; float outputs are held to 1e-6 relative
-# (only the order of the K3 adds into the grid could differ, and it does not).
+# (only the order of the adds into the grid could differ, and it does not).
 FLOAT_RTOL = 1e-6
 
 
@@ -82,7 +100,12 @@ def cuda_time(fn, reps: int) -> float:
 KERNEL_SYMBOLS = {"dda_job_stream": "dda_kernel",
                   "block_meta": "block_meta_kernel",
                   "projective_apply_fused": "proj_apply_kernel",
+                  "slot_resolve_stream": "slot_resolve_kernel",
+                  "block_rmw_add": "block_rmw_kernel",
                   "empty": "empty_kernel"}
+CHANNELS = ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor")
+K1_OUTPUTS = ("key", "local", "w", "wsdf", "wc", "valid", "run_key",
+              "run_idx")
 
 
 def trace(fn):
@@ -162,7 +185,7 @@ def max_abs_err(a, b) -> float:
 def plain_kernels(kernels):
     """Route the main path through the kernels' plain versions (on
     whatever device the tensors are): for the reference run only."""
-    names = ("dda_job_stream", "block_meta", "projective_apply_fused")
+    names = tuple(kernels.launches)
     saved = {n: getattr(kernels, n) for n in names}
     try:
         for n in names:
@@ -190,6 +213,343 @@ def canonical(kt):
                                 width=640, height=480)
     return cfg, intr
 
+
+
+def ray_config(kt, method: str):
+    """bench.py's configuration of a ray integrator (bench.py:87-145 with
+    BENCH_METHOD=fast or merged): the canonical grid, carve_mode
+    "projective", band density "matched" (fast) or "octave" (merged), and
+    the method's ray and segment budgets."""
+    cfg, intr = canonical(kt)
+    fast = method == "fast"
+    return dataclasses.replace(
+        cfg, tsdf=dataclasses.replace(
+            cfg.tsdf, carve_mode="projective",
+            band_density="matched" if fast else "octave"),
+        pipeline=dataclasses.replace(
+            cfg.pipeline, max_rays=28672 if fast else 32768,
+            segment_budget=98304 if fast else 40960)), intr
+
+
+def stage_ms(events, stages, n_frames, outer=None):
+    """Host ms per frame of each `integrate_frame/<stage>` profiler range;
+    with `outer`, ranges nested in an `integrate_frame/<outer>` range (the
+    projective path's own stages inside the fast path's dense carve) are
+    left out."""
+    from torch.autograd import DeviceType
+    cpu = [e for e in events if e.device_type == DeviceType.CPU
+           and e.name.startswith("integrate_frame/")]
+    spans = [(e.time_range.start, e.time_range.end) for e in cpu
+             if outer and e.name == f"integrate_frame/{outer}"]
+
+    def nested(e):
+        return any(a <= e.time_range.start and e.time_range.end <= b
+                   for a, b in spans)
+    return {k: sum(e.time_range.elapsed_us() for e in cpu
+                   if e.name == f"integrate_frame/{k}"
+                   and (k == outer or not nested(e))) / 1e3 / n_frames
+            for k in stages}
+
+
+def compare_grids(grid, ref, cfg, exact, label):
+    """Fail unless `ref` holds the same blocks as `grid` with the same
+    counters, and its channels agree block by block (the channels in
+    `exact` bit for bit, the others within FLOAT_RTOL). Returns the largest
+    float difference and the observed voxel count."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    g = cfg.grid
+    n_blocks = int(grid.n_blocks)
+    for name in ("n_blocks", "overflow", "dropped_rays", "frame_counter"):
+        if int(getattr(ref, name)) != int(getattr(grid, name)):
+            fail(f"{label}: plain run {name} {int(getattr(ref, name))}, "
+                 f"kernel run {int(getattr(grid, name))}")
+    coords = grid.block_coords[:n_blocks]
+    s_k = blocks.lookup_slots(grid, coords, g).long()
+    s_p = blocks.lookup_slots(ref, coords, g).long()
+    if bool((s_p >= g.block_capacity).any()):
+        fail(f"{label}: plain run allocated another block set")
+    worst = 0.0
+    for c in CHANNELS:
+        a, b = getattr(grid, c), getattr(ref, c)
+        a, b = (a[:, s_k], b[:, s_p]) if a.dim() == 3 else (a[s_k], b[s_p])
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{label} {c}: non-finite values")
+        if c in exact:
+            if not torch.equal(a, b):
+                fail(f"{label} {c}: kernel run and plain run differ")
+        elif max_abs_err(a, b) > 0 and max_rel_err(a, b) > FLOAT_RTOL:
+            fail(f"{label} {c}: kernel run and plain run differ")
+        else:
+            worst = max(worst, max_abs_err(a, b))
+    upd_k = grid.updated[s_k]
+    if not torch.equal(upd_k, ref.updated[s_p]) or not bool(upd_k.any()):
+        fail(f"{label}: updated flags differ")
+    dist = blocks.tsdf_distance(grid, cfg.tsdf.truncation_distance)[s_k]
+    labs = blocks.mle_labels(grid)[s_k]
+    seen = grid.wsum[s_k] > 0
+    if not bool(torch.isfinite(dist).all()) or int(labs.max()) >= g.num_labels:
+        fail(f"{label}: readouts out of range")
+    return worst, int(seen.sum()), sorted(set(labs[seen].tolist()))
+
+
+def drive(model, cfg, intr, frames, warm, n, dev, expect):
+    """Integrate frames[:warm], then time frames[warm:warm + n] on the
+    host clock (ending in a synchronize) with every launch count set to 0
+    just before; fail unless the counts equal `expect` (per frame) and no
+    block overflowed. Returns (grid, counts, ms per frame)."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.ops import kernels
+    grid = blocks.create(cfg, device=dev)
+    for f in frames[:warm]:
+        model.integrate_frame(grid, f, cfg, intr, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for f in frames[warm:warm + n]:
+        model.integrate_frame(grid, f, cfg, intr, device=dev)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    counts = dict(kernels.launches)
+    want = {k: expect.get(k, 0) * n for k in counts}
+    if counts != want:
+        fail(f"{model.__name__}: launches {counts} over {n} frames, "
+             f"expected {want}")
+    if int(grid.overflow) != 0 or int(grid.n_blocks) <= 0:
+        fail(f"{model.__name__}: overflow {int(grid.overflow)}, n_blocks "
+             f"{int(grid.n_blocks)}")
+    return grid, counts, ms
+
+
+def capture_ray_inputs(fast, kernels, grid, frame, cfg, intr, dev):
+    """Run one fast frame with each ray-path kernel wrapper recording its
+    arguments (cloned) before it launches: K1's second launch (the band
+    walk at voxel granularity), K6 and K5."""
+    import torch
+    seen = {}
+    real = {n: getattr(kernels, n) for n in ("dda_job_stream",
+                                             "slot_resolve_stream",
+                                             "block_rmw_add")}
+
+    def recorder(name):
+        def fn(*a, **kw):
+            # K5's first five arguments are the grid channels themselves
+            keep = lambda i, x: (x.clone() if torch.is_tensor(x) and not (  # noqa
+                name == "block_rmw_add" and i < 5) else x)
+            seen.setdefault(name, []).append(
+                ([keep(i, x) for i, x in enumerate(a)],
+                 {k: keep(-1, v) for k, v in kw.items()}))
+            return real[name](*a, **kw)
+        return fn
+    try:
+        for n in real:
+            setattr(kernels, n, recorder(n))
+        fast.integrate_frame(grid, frame, cfg, intr, device=dev)
+    finally:
+        for n, f in real.items():
+            setattr(kernels, n, f)
+    torch.cuda.synchronize()
+    if [len(seen.get(n, ())) for n in real] != [2, 1, 1]:
+        fail("fast frame launched " + str({n: len(v) for n, v in
+                                           seen.items()}))
+    return seen["dda_job_stream"][1][0], seen["slot_resolve_stream"][0][0], \
+        seen["block_rmw_add"][0]
+
+
+def check_outputs(label, got, ref, names, floats):
+    """Fail unless kernel and plain outputs agree: ints bit-exact, floats
+    within FLOAT_RTOL. Returns the largest float difference."""
+    import torch
+    err = 0.0
+    for n, a, b in zip(names, got, ref):
+        if n in floats:
+            e = max_abs_err(a, b)
+            if e > 0 and max_rel_err(a, b) > FLOAT_RTOL:
+                fail(f"{label} {n}: kernel and plain differ (max abs {e})")
+            err = max(err, e)
+        elif not torch.equal(a, b):
+            fail(f"{label} {n}: kernel and plain differ at "
+                 f"{int((a != b).sum())} entries")
+    return err
+
+
+def ray_kernel_checks(kt, frames, dev, report):
+    """Phase 4: K1 (voxel granularity), K6 and K5 against their plain
+    versions on the card, at the fast path's shapes, and timed."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.models import fast
+    from kimera_semantics_tpu_torch.ops import kernels
+    cfg, intr = ray_config(kt, "fast")
+    g = cfg.grid
+    grid = blocks.create(cfg, device=dev)
+    for f in frames[:WARM_FRAMES]:
+        fast.integrate_frame(grid, f, cfg, intr, device=dev)
+    k1_args, k6_args, (k5_args, k5_kw) = capture_ray_inputs(
+        fast, kernels, grid, frames[WARM_FRAMES], cfg, intr, dev)
+
+    # K1 at voxel granularity: the band walk.
+    _, S, _, point3, _, _, _, _ = k1_args
+    R = point3.shape[1]
+    out_k = kernels.dda_job_stream(*k1_args)
+    out_p = kernels.dda_job_stream_plain(*k1_args)
+    torch.cuda.synchronize()
+    err = check_outputs("K1 (voxel)", out_k, out_p, K1_OUTPUTS,
+                        ("w", "wsdf", "wc"))
+    MAXR = out_k[6].shape[0]
+    t = kernel_times("dda_job_stream", lambda: kernels.dda_job_stream(
+        *k1_args), lambda: kernels.dda_job_stream_plain(*k1_args))
+    report["dda_job_stream"]["voxel"] = dict(
+        err=err, R=R, S=S, MAXR=MAXR, **t,
+        bytes=4 * (3 * 4 * R + 2 * R) + 4 * (7 * S * R + MAXR * R),
+        ops=R * (60 + 40 * S))
+    print(f"[K1 dda_job_stream, voxel granularity] R={R} S={S} MAXR={MAXR}: "
+          f"ints bit-exact, float max abs err {err:g}")
+
+    # K6: every output bit-exact.
+    out_k = kernels.slot_resolve_stream(*k6_args)
+    out_p = kernels.slot_resolve_stream_plain(*k6_args)
+    torch.cuda.synchronize()
+    check_outputs("K6", out_k, out_p, ("k2", "w", "wsdf", "cnt", "key",
+                                       "valid", "run_slots"), ())
+    cube, cam, gate_near = k6_args[1], k6_args[2], k6_args[13]
+    S6, R6 = k6_args[5].shape
+    M6 = k6_args[3].shape[0]
+    n_valid = int(out_k[5].sum())
+    report["slot_resolve_stream"] = dict(
+        err=0.0, **kernel_times(
+            "slot_resolve_stream",
+            lambda: kernels.slot_resolve_stream(*k6_args),
+            lambda: kernels.slot_resolve_stream_plain(*k6_args)),
+        # inputs: the run keys, four 4-byte (S, R) planes (run_idx, local,
+        # w, wsdf), the 1-byte valid flags, labels (4 B) and informative
+        # flags (1 B) per ray, the cubes and camera blocks, and wc only
+        # where gate_near reads it (valid steps); outputs: five 4-byte
+        # (S, R) planes, the 1-byte valid flags and the run slots. ops:
+        # integer and float ops per run and per step.
+        bytes=4 * M6 * R6 + 17 * S6 * R6 + 5 * R6 + 4 * cube.numel()
+        + 4 * cam.numel() + (4 * n_valid if gate_near else 0)
+        + 21 * S6 * R6 + 4 * M6 * R6,
+        ops=R6 * (20 * M6 + 16 * S6))
+    print(f"[K6 slot_resolve_stream] R={R6} S={S6} MAXR={M6} cube "
+          f"{tuple(cube.shape)} gate_near={gate_near}: all seven outputs "
+          f"bit-exact; {n_valid} valid steps, "
+          f"{int((out_k[6] >= 0).sum())} resolved runs")
+
+    # K5: the captured packed staging, then dense and onehot forms of the
+    # same votes at the same rows.
+    slots, d_w, d_wsdf, d_cnt, _, d_wc = k5_args[5:11]
+    lk, d_packed = k5_kw["lk_delta"], k5_kw["d_sem"]
+    P = d_packed.shape[0]
+    L = g.num_labels
+    cr = torch.floor(d_packed * (1.0 / 32.0))
+    lr = (d_packed - 32.0 * cr).long()
+    dense = torch.zeros((L,) + d_w.shape, dtype=torch.float32, device=dev)
+    dense.scatter_add_(0, lr, cr)           # integral counts: exact
+    d_lab = lr[0].to(torch.int32)
+    live = (torch.div(slots[::8], 8, rounding_mode="floor")
+            != (g.padded_rows - 8) // 8)
+    rows = live.repeat_interleave(8)
+    Kb, V3 = d_w.shape
+    n_live = int(rows.sum())
+    nz = lambda x: int((x[rows] != 0).sum())  # noqa: E731
+    rmw_base = 8 * (nz(d_w) + nz(d_wsdf) + nz(d_cnt))
+    forms = {
+        "packed": (dict(d_sem=d_packed, sem_packed_ranks=P), None,
+                   4 * n_live * V3 * (3 + P), 8 * int((cr[:, rows] > 0)
+                                                        .sum())),
+        "dense": (dict(d_sem=dense), None, 4 * n_live * V3 * (3 + L),
+                  8 * nz(dense.transpose(0, 1))),
+        "onehot": ({}, d_lab, 4 * n_live * V3 * 4, 8 * nz(d_cnt)),
+    }
+    base = [getattr(grid, c) for c in CHANNELS]
+    k5 = {}
+    for form, (kw, lab, delta_bytes, vote_bytes) in forms.items():
+        args = lambda chs: (*chs, slots, d_w, d_wsdf, d_cnt, lab, d_wc)  # noqa
+        ck = [t.clone() for t in base]
+        cp = [t.clone() for t in base]
+        kernels.block_rmw_add(*args(ck), lk, **kw)
+        kernels.block_rmw_add_plain(*args(cp), lk, **kw)
+        torch.cuda.synchronize()
+        err = check_outputs(f"K5 ({form})", ck, cp, CHANNELS,
+                            ("wsum", "wsdf", "wcolor"))
+        if torch.equal(ck[3], base[3]):
+            fail(f"K5 ({form}) added no vote")
+        del cp
+        k5[form] = dict(
+            err=err, **kernel_times(
+                "block_rmw_add",
+                lambda: kernels.block_rmw_add(*args(ck), lk, **kw),
+                lambda: kernels.block_rmw_add_plain(*args(ck), lk, **kw)),
+            # the live tiles' deltas read once, the slots, and one read and
+            # one write of each grid word a nonzero delta or a vote adds to
+            bytes=delta_bytes + 4 * Kb + rmw_base + vote_bytes,
+            ops=n_live * V3 * (12 + 4 * (P if form == "packed" else
+                                         L if form == "dense" else 1)))
+        del ck
+        torch.cuda.empty_cache()
+        print(f"[K5 block_rmw_add, {form}] Kb={Kb} V3={V3} live rows "
+              f"{n_live}: counts and label planes bit-exact, float max abs "
+              f"err {err:g}")
+    report["block_rmw_add"] = dict(k5["packed"], forms=k5)
+    del grid, base
+    torch.cuda.empty_cache()
+
+
+
+PROJECTIVE_KERNELS = ("dda_job_stream", "block_meta", "projective_apply_fused")
+
+
+def traced_profile(model, cfg, intr, frames, dev, stages, ms, tag,
+                   outer=None):
+    """Trace the timed loop of `model` once more on a fresh grid with
+    torch.profiler; print each stage's host ms per frame, the device's busy
+    time and idle share of the untraced `ms`, and each kernel's device ms
+    per frame in the loop."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    n = len(frames) - WARM_FRAMES
+    tgrid = blocks.create(cfg, device=dev)
+    for f in frames[:WARM_FRAMES]:
+        model.integrate_frame(tgrid, f, cfg, intr, device=dev)
+    torch.cuda.synchronize()
+    traced = {}
+
+    def traced_loop():
+        t0 = time.perf_counter()
+        for f in frames[WARM_FRAMES:]:
+            model.integrate_frame(tgrid, f, cfg, intr, device=dev)
+        torch.cuda.synchronize()
+        traced["ms"] = 1e3 * (time.perf_counter() - t0) / n
+    events = trace(traced_loop)
+    del tgrid
+    st = stage_ms(events, stages, n, outer)
+    dev_ms = {k: sum(e.time_range.elapsed_us()
+                     for e in device_events(events) if sym in e.name)
+              / 1e3 / n
+              for k, sym in KERNEL_SYMBOLS.items() if k != "empty"}
+    busy = busy_ms(events) / n
+    print(f"[{tag}] host ms/frame under the profiler ({traced['ms']:.3f} "
+          "ms/frame traced): " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in st.items()))
+    print(f"[{tag} device] busy {busy:.3f} ms/frame (trace), idle share "
+          f"{1 - busy / ms:.4f} of the untraced {ms:.3f} ms/frame; kernel "
+          "device ms/frame in the loop: " + ", ".join(
+              f"{k} {v:.5f}" for k, v in dev_ms.items()))
+
+
+def plain_run(kernels, model, grid, cfg, intr, frames, dev):
+    """The frames through `model` with every kernel's plain version on the
+    card; fails if a kernel launched."""
+    import torch
+    kernels.reset_launches()
+    with plain_kernels(kernels):
+        for f in frames:
+            model.integrate_frame(grid, f, cfg, intr, device=dev)
+    torch.cuda.synchronize()
+    if any(kernels.launches.values()):
+        fail("the plain reference run launched a kernel")
 
 def main() -> int:
     import torch
@@ -268,17 +628,7 @@ def main() -> int:
     out_k = kernels.dda_job_stream(*jobs)
     out_p = kernels.dda_job_stream_plain(*jobs)
     torch.cuda.synchronize()
-    names = ("key", "local", "w", "wsdf", "wc", "valid", "run_key", "run_idx")
-    err1 = 0.0
-    for n, a, b in zip(names, out_k, out_p):
-        if n in ("w", "wsdf", "wc"):
-            e = max_abs_err(a, b)
-            if e > 0 and max_rel_err(a, b) > FLOAT_RTOL:
-                fail(f"K1 {n}: kernel and plain differ (max abs {e})")
-            err1 = max(err1, e)
-        elif not torch.equal(a, b):
-            fail(f"K1 {n}: kernel and plain differ at "
-                 f"{int((a != b).sum())} entries")
+    err1 = check_outputs("K1", out_k, out_p, K1_OUTPUTS, ("w", "wsdf", "wc"))
     MAXR = out_k[6].shape[0]
     print(f"[K1 dda_job_stream] R={R} S={S} MAXR={MAXR}: ints bit-exact, "
           f"float max abs err {err1:g}")
@@ -314,10 +664,9 @@ def main() -> int:
         bytes=K * (12 + 4 + 32) + 48, ops=K * 8 * 40)
 
     lk = sem_ops.make_likelihood_cached(cfg).delta
-    chans = ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor")
 
     def channels(gr):
-        return [getattr(gr, c) for c in chans]
+        return [getattr(gr, c) for c in CHANNELS]
 
     def k3(fn, chs):
         return fn(*chs, fslots, meta_k, T_C_G, atlas, cfg, intr, plan, lk,
@@ -328,17 +677,7 @@ def main() -> int:
     k3(kernels.projective_apply_fused, ck)
     k3(kernels.projective_apply_fused_plain, cp)
     torch.cuda.synchronize()
-    err3 = 0.0
-    for n, a, b in zip(chans, ck, cp):
-        if n in ("sem_count", "sem_delta"):
-            if not torch.equal(a, b):
-                fail(f"K3 {n}: kernel and plain differ at "
-                     f"{int((a != b).sum())} voxels")
-        else:
-            e = max_abs_err(a, b)
-            if e > 0 and max_rel_err(a, b) > FLOAT_RTOL:
-                fail(f"K3 {n}: kernel and plain differ (max abs {e})")
-            err3 = max(err3, e)
+    err3 = check_outputs("K3", ck, cp, CHANNELS, ("wsum", "wsdf", "wcolor"))
     del cp
     w, w_sdf, cnt, label, upd, gate, _ = proj_ops.sample_terms(
         meta_k, T_C_G, atlas, cfg, intr, plan)
@@ -377,14 +716,14 @@ def main() -> int:
     grid = blocks.create(cfg, device=dev)
     print(f"[grid] channels {grid.channel_bytes() / 2**30:.3f} GiB "
           f"({g.padded_rows} rows x {g.vps3} voxels, {g.num_labels} labels)")
-    for f in frames[:4]:
+    for f in frames[:WARM_FRAMES]:
         proj.integrate_frame(grid, f, cfg, intr, device=dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_frames + 1)]
     t0 = time.perf_counter()
     ev[0].record()
-    for i, f in enumerate(frames[4:]):
+    for i, f in enumerate(frames[WARM_FRAMES:]):
         proj.integrate_frame(grid, f, cfg, intr, device=dev)
         ev[i + 1].record()
     torch.cuda.synchronize()
@@ -392,8 +731,9 @@ def main() -> int:
     counts = dict(kernels.launches)
     per_frame = [ev[i].elapsed_time(ev[i + 1]) for i in range(n_frames)]
     for n, c in counts.items():
-        if c != n_frames:
+        if c != (n_frames if n in PROJECTIVE_KERNELS else 0):
             fail(f"{n} launched {c} times over {n_frames} frames")
+    launches = {"projective": counts}
     overflow, n_blocks = int(grid.overflow), int(grid.n_blocks)
     if overflow != 0 or n_blocks <= 0:
         fail(f"overflow {overflow}, n_blocks {n_blocks}")
@@ -408,121 +748,137 @@ def main() -> int:
     # profiler ranges (models/projective.py STAGES); the host waits inside
     # a stage (the hash insert's syncs) are part of it. The device's busy
     # time is the union of its activities in the trace.
-    tgrid = blocks.create(cfg, device=dev)
-    for f in frames[:WARM_FRAMES]:
-        proj.integrate_frame(tgrid, f, cfg, intr, device=dev)
-    torch.cuda.synchronize()
-    traced = {}
-
-    def traced_loop():
-        t0 = time.perf_counter()
-        for f in frames[WARM_FRAMES:]:
-            proj.integrate_frame(tgrid, f, cfg, intr, device=dev)
-        torch.cuda.synchronize()
-        traced["ms"] = 1e3 * (time.perf_counter() - t0) / n_frames
-    events = trace(traced_loop)
-    traced_ms = traced["ms"]
-    del tgrid
-    from torch.autograd import DeviceType
-    stages = {k: sum(e.time_range.elapsed_us() for e in events
-                     if e.name == f"integrate_frame/{k}"
-                     and e.device_type == DeviceType.CPU) / 1e3 / n_frames
-              for k in proj.STAGES}
-    dev_ms = {n: sum(e.time_range.elapsed_us()
-                     for e in device_events(events) if sym in e.name)
-              / 1e3 / n_frames
-              for n, sym in KERNEL_SYMBOLS.items() if n != "empty"}
-    busy = busy_ms(events) / n_frames
-    print(f"[stages] host ms/frame under the profiler ({traced_ms:.3f} "
-          "ms/frame traced): " + ", ".join(f"{k} {v:.3f}"
-                                         for k, v in stages.items()))
-    print(f"[device] busy {busy:.3f} ms/frame (trace), idle share "
-          f"{1 - busy / ms:.4f} of the untraced {ms:.3f} ms/frame; kernel "
-          "device ms/frame in the loop: " + ", ".join(
-              f"{n} {v:.5f}" for n, v in dev_ms.items()))
+    traced_profile(proj, cfg, intr, frames, dev, proj.STAGES, ms, "stages")
 
     # Reference: the same frames through the plain versions on the card.
     ref = blocks.create(cfg, device=dev)
-    kernels.reset_launches()
     t0 = time.time()
-    with plain_kernels(kernels):
-        for f in frames:
-            proj.integrate_frame(ref, f, cfg, intr, device=dev)
-    torch.cuda.synchronize()
-    if any(kernels.launches.values()):
-        fail("the plain reference run launched a kernel")
-    n_ref = int(ref.n_blocks)
-    coords = grid.block_coords[:n_blocks]
-    if n_ref != n_blocks or int(ref.overflow) != overflow:
-        fail(f"plain run: n_blocks {n_ref} overflow {int(ref.overflow)}")
-    s_k = blocks.lookup_slots(grid, coords, g).long()
-    s_p = blocks.lookup_slots(ref, coords, g).long()
-    if bool((s_p >= g.block_capacity).any()):
-        fail("plain run allocated another block set")
-    worst = 0.0
-    for c in chans:
-        a, b = getattr(grid, c), getattr(ref, c)
-        a, b = (a[:, s_k], b[:, s_p]) if a.dim() == 3 else (a[s_k], b[s_p])
-        if not bool(torch.isfinite(a).all()):
-            fail(f"{c}: non-finite values")
-        if c in ("sem_count", "sem_delta"):
-            if not torch.equal(a, b):
-                fail(f"{c}: kernel run and plain run differ")
-        elif max_abs_err(a, b) > 0 and max_rel_err(a, b) > FLOAT_RTOL:
-            fail(f"{c}: kernel run and plain run differ")
-        else:
-            worst = max(worst, max_abs_err(a, b))
-    upd_k = grid.updated[s_k]
-    if not torch.equal(upd_k, ref.updated[s_p]) or not bool(upd_k.any()):
-        fail("updated flags differ")
-    dist = blocks.tsdf_distance(grid, cfg.tsdf.truncation_distance)[s_k]
-    labs = blocks.mle_labels(grid)[s_k]
-    seen = grid.wsum[s_k] > 0
-    if not bool(torch.isfinite(dist).all()) or int(labs.max()) >= g.num_labels:
-        fail("readouts out of range")
+    plain_run(kernels, proj, ref, cfg, intr, frames, dev)
+    worst, n_seen, labels = compare_grids(grid, ref, cfg,
+                                          ("sem_count", "sem_delta"),
+                                          "projective")
     print(f"[reference] plain run of {len(frames)} frames in "
           f"{time.time() - t0:.1f} s: same {n_blocks} block coordinates; "
           f"channels agree (counts and label planes exact, float max abs "
-          f"{worst:g}); observed voxels {int(seen.sum())}, labels "
-          f"{sorted(set(labs[seen].tolist()))}")
+          f"{worst:g}); observed voxels {n_seen}, labels {labels}")
+    del grid, ref
+    torch.cuda.empty_cache()
 
-    # -- 4. report ----------------------------------------------------------
-    sources = {"dda_job_stream": ("kimera_semantics_tpu_torch/csrc/dda.cu",
-                                  "kimera_semantics_tpu/ops/pallas_kernels.py:142"),
-               "block_meta": ("kimera_semantics_tpu_torch/csrc/block_meta.cu",
-                              "kimera_semantics_tpu/ops/pallas_kernels.py:345"),
-               "projective_apply_fused": (
-                   "kimera_semantics_tpu_torch/csrc/proj_apply.cu",
-                   "kimera_semantics_tpu/ops/pallas_kernels.py:822")}
+    # -- 4. the ray integrators' kernels vs plain, at the fast path's shapes
+    ray_kernel_checks(kt, frames, dev, report)
+
+    # -- 5. the fast integrator at bench.py's fast configuration ------------
+    from kimera_semantics_tpu_torch.models import fast, merged
+    fcfg, fintr = ray_config(kt, "fast")
+    per_frame_ray = dict(dda_job_stream=2, block_meta=1,
+                         projective_apply_fused=1, slot_resolve_stream=1,
+                         block_rmw_add=1)
+    grid, counts, fms = drive(fast, fcfg, fintr, frames, WARM_FRAMES,
+                              n_frames, dev, per_frame_ray)
+    launches["fast"] = counts
+    print(f"[fast] {n_frames} frames: {fms:.3f} ms/frame host clock, "
+          f"{1e3 / fms:.1f} frames/s; launches {counts}; n_blocks "
+          f"{int(grid.n_blocks)} overflow {int(grid.overflow)} dropped_rays "
+          f"{int(grid.dropped_rays)}")
+    traced_profile(fast, fcfg, fintr, frames, dev, fast.STAGES, fms,
+                   "fast stages", outer="carve")
+    ref = blocks.create(fcfg, device=dev)
+    t0 = time.time()
+    plain_run(kernels, fast, ref, fcfg, fintr, frames, dev)
+    worst, n_seen, labels = compare_grids(grid, ref, fcfg, ("sem_count",),
+                                          "fast")
+    print(f"[fast reference] plain run of {len(frames)} frames in "
+          f"{time.time() - t0:.1f} s: same {int(grid.n_blocks)} block "
+          f"coordinates and counters; channels agree (counts exact, floats "
+          f"within {FLOAT_RTOL:g} relative, max abs {worst:g}); observed "
+          f"voxels {n_seen}, labels {labels}")
+    del grid, ref
+    torch.cuda.empty_cache()
+
+    # -- 6. the merged integrator at bench.py's merged configuration --------
+    mcfg, mintr = ray_config(kt, "merged")
+    grid, counts, mms = drive(merged, mcfg, mintr, frames, MERGED_WARM,
+                              MERGED_FRAMES, dev, per_frame_ray)
+    launches["merged"] = counts
+    print(f"[merged] {MERGED_FRAMES} frames: {mms:.3f} ms/frame host clock, "
+          f"{1e3 / mms:.1f} frames/s; launches {counts}; n_blocks "
+          f"{int(grid.n_blocks)} overflow {int(grid.overflow)} dropped_rays "
+          f"{int(grid.dropped_rays)}")
+    mframes = frames[:MERGED_WARM + MERGED_FRAMES]
+    ref = blocks.create(mcfg, device=dev)
+    t0 = time.time()
+    plain_run(kernels, merged, ref, mcfg, mintr, mframes, dev)
+    worst, n_seen, labels = compare_grids(grid, ref, mcfg, ("sem_count",),
+                                          "merged")
+    print(f"[merged reference] plain run of {len(mframes)} frames in "
+          f"{time.time() - t0:.1f} s: same {int(grid.n_blocks)} block "
+          f"coordinates and counters; channels agree (counts exact, floats "
+          f"within {FLOAT_RTOL:g} relative, max abs {worst:g}); observed "
+          f"voxels {n_seen}, labels {labels}")
+    del grid, ref
+    torch.cuda.empty_cache()
+    traced_profile(merged, mcfg, mintr, frames[:WARM_FRAMES + MERGED_FRAMES],
+                   dev, fast.STAGES, mms, "merged stages", outer="carve")
+
+    # -- 7. report ----------------------------------------------------------
+    src, tpu = "kimera_semantics_tpu_torch/csrc/", \
+        "kimera_semantics_tpu/ops/pallas_kernels.py:"
+    sources = {"dda_job_stream": (src + "dda.cu", tpu + "142"),
+               "block_meta": (src + "block_meta.cu", tpu + "345"),
+               "projective_apply_fused": (src + "proj_apply.cu", tpu + "822"),
+               "slot_resolve_stream": (src + "slot_resolve.cu", tpu + "472"),
+               "block_rmw_add": (src + "block_rmw.cu", tpu + "936")}
     # bound_ms is the larger of the bytes' and the operations' time; the
     # measured launch floor rides beside it, and the least time a launch of
     # the kernel can take is the larger of bound_ms and launch_floor_ms.
-    table = []
-    for name, r in report.items():
+    # "launches" counts the fast path's run (this slice's main path), which
+    # launches all five; "launches_by_path" has each path's run.
+
+    def bound_of(r):
         t_bytes = 1e3 * r["bytes"] / BANDWIDTH
         t_ops = 1e3 * r["ops"] / FP32_PEAK
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        table.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": counts[name],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "launch_floor_ms": floor_ms})
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+            else "operations"
+
+    def line(name, r, shape):
+        bound, by = bound_of(r)
         least = max(bound, floor_ms)
-        print(f"[kernel] {name}: {r['ms']:.5f} ms device ({r['timed_by']}; "
-              f"{r['wrapper_ms']:.4f} ms per wrapper call, events); plain "
-              f"{r['plain_ms']:.3f} ms; bound {bound:.5f} ms by {by} "
-              f"({r['bytes']} B, {r['ops']} ops); least with the launch "
-              f"floor {least:.5f} ms, kernel at {r['ms'] / least:.2f}x; "
-              f"{counts[name]} launches over {n_frames} frames")
+        print(f"[kernel] {name}{shape}: {r['ms']:.5f} ms device "
+              f"({r['timed_by']}; {r['wrapper_ms']:.4f} ms per wrapper call, "
+              f"events); plain {r['plain_ms']:.3f} ms; bound {bound:.5f} ms "
+              f"by {by} ({r['bytes']} B, {r['ops']} ops); least with the "
+              f"launch floor {least:.5f} ms, kernel at "
+              f"{r['ms'] / least:.2f}x")
+        return dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound,
+                    bound_by=by)
+
+    table = []
+    for name, r in report.items():
+        entry = {"name": name, "route": "cuda", "source": sources[name][0],
+                 "replaces": sources[name][1],
+                 "launches": launches["fast"][name],
+                 "max_abs_err": r["err"], **line(name, r, ""),
+                 "library_ms": None, "launch_floor_ms": floor_ms,
+                 "launches_by_path": {p: c[name] for p, c in
+                                      launches.items()}}
+        if "voxel" in r:
+            v = r["voxel"]
+            entry["voxel_granularity"] = dict(
+                R=v["R"], S=v["S"], max_abs_err=v["err"],
+                **line(name, v, f" (voxel granularity, R={v['R']} "
+                                f"S={v['S']})"))
+        if "forms" in r:
+            entry["forms"] = {f: dict(max_abs_err=v["err"],
+                                      **line(name, v, f" ({f})"))
+                              for f, v in r["forms"].items()}
+        table.append(entry)
     print(json.dumps({"kernels": table}))
     print(smi)
+    # The last line: the one card this script used.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

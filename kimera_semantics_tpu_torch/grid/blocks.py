@@ -1,7 +1,7 @@
 """VoxelGrid: the block-hashed TSDF + semantic voxel state.
 
 Counterpart: kimera_semantics_tpu/grid/blocks.py (VoxelGrid, create,
-lookup_slots and the readouts). The channels keep the JAX package's layout
+voxel_to_block_local, point_to_voxel, lookup_slots and the readouts). The channels keep the JAX package's layout
 and its 8-row trash tile (`GridConfig.padded_rows` = capacity + 8 rows):
 
   wsum      (R, V3)     sum of measurement weights
@@ -43,7 +43,7 @@ class VoxelGrid:
     sem_count: torch.Tensor
     sem_delta: torch.Tensor
     updated: torch.Tensor       # (R,) bool, blocks touched since last mesh
-    # Approx-set state of the ray integrators (not used by this slice).
+    # Approx-set state of the ray integrators (ops/dedup.py).
     start_set: torch.Tensor     # (D,) int32
     observed_set: torch.Tensor  # (D,) int32
     frame_counter: torch.Tensor  # () int32
@@ -80,6 +80,21 @@ def create(cfg: FusionConfig, device="cuda") -> VoxelGrid:
         updated=z(R, dtype=torch.bool),
         start_set=full(D, -1), observed_set=full(D, -1),
         frame_counter=z(dtype=i32))
+
+
+def voxel_to_block_local(voxel_coords: torch.Tensor, vps: int):
+    """(..., 3) int32 global voxel coords -> (block (..., 3), local linear
+    index (...,)), with floor division."""
+    block = torch.div(voxel_coords, vps, rounding_mode="floor")
+    local = voxel_coords - block * vps
+    lin = (local[..., 0] * vps + local[..., 1]) * vps + local[..., 2]
+    return block, lin
+
+
+def point_to_voxel(points: torch.Tensor, voxel_size_inv: float):
+    """World point -> global voxel coord, floor(p * voxel_size_inv + 1e-6)
+    (voxblox getGridIndexFromPoint)."""
+    return torch.floor(points * voxel_size_inv + 1e-6).to(torch.int32)
 
 
 def lookup_slots(grid: VoxelGrid, block_coords: torch.Tensor,

@@ -1,7 +1,7 @@
 """Open-addressing block hash table: BlockIndex -> slot.
 
 Counterpart: kimera_semantics_tpu/grid/hash.py (pack/unpack, mix, lookup,
-insert, insert_frame_list). Block coordinates pack into one int32 key
+insert, insert_compacted, unique_keys, insert_frame_list). Block coordinates pack into one int32 key
 (10 bits per axis, offset by +world_extent_blocks), hash with a
 murmur3-style finalizer, and probe linearly. Insertion is a batched claim
 and verify loop: a racing `index_put_` claims empty positions and a read
@@ -38,6 +38,18 @@ def unpack_block_key(keys: torch.Tensor, extent: int) -> torch.Tensor:
 
 def in_bounds(coords: torch.Tensor, extent: int) -> torch.Tensor:
     return ((coords >= -extent) & (coords < extent)).all(dim=-1)
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """Integers carried in int64 wrapped to int32 two's complement, as the
+    reference's int32 multiplies and shifts wrap."""
+    return (((x.to(torch.int64) + (1 << 31)) & 0xFFFFFFFF)
+            - (1 << 31)).to(torch.int32)
+
+
+def mul_i32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """int32 a * c with wrap-around (computed in int64)."""
+    return wrap_i32(a.to(torch.int64) * c)
 
 
 def mix(keys: torch.Tensor) -> torch.Tensor:
@@ -131,6 +143,24 @@ def _unique_sorted(keys: torch.Tensor, active: torch.Tensor, budget: int):
     uk, _ = torch.sort(torch.where(is_first, sk,
                                    torch.full_like(sk, _TRASH_KEY)))
     return uk[:budget], torch.clamp(n_uniq - budget, min=0)
+
+
+def unique_keys(keys: torch.Tensor, active: torch.Tensor, budget: int):
+    """Compact a duplicate-heavy key stream to its unique values: (uk
+    (budget,) int32 ascending with trash 0x7FFFFFFF beyond the uniques,
+    n_dropped)."""
+    return _unique_sorted(keys.reshape(-1), active.reshape(-1), budget)
+
+
+def insert_compacted(table_keys, table_slots, block_coords, n_blocks, keys,
+                     active, table_size: int, capacity: int, extent: int):
+    """insert() after compacting `keys` to its unique values; uniques
+    beyond `capacity` count as overflow (they could never be allocated)."""
+    uk, dropped = _unique_sorted(keys, active, capacity)
+    tk, ts, bc, nb, ov = insert(table_keys, table_slots, block_coords,
+                                n_blocks, uk, uk != _TRASH_KEY, table_size,
+                                capacity, extent)
+    return tk, ts, bc, nb, ov + dropped
 
 
 def insert_frame_list(table_keys, table_slots, block_coords, n_blocks, keys,

@@ -1,7 +1,8 @@
 """Shared frame-level plumbing for the integrators.
 
 Counterpart: kimera_semantics_tpu/models/common.py (Frame,
-frame_from_images). A Frame is a dataclass of tensors on one device.
+frame_from_images, prepare_points, gather_packed, compact). A Frame is a
+dataclass of tensors on one device.
 """
 
 from __future__ import annotations
@@ -12,8 +13,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import camera as cam
+from ..core import transforms
 from ..core.color import LabelColorMap
 from ..device import resolve
+from ..ops import semantic as sem_ops
+from ..ops import tsdf as tsdf_ops
+from ..ops.reduce import stable_compact_order
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,3 +61,40 @@ def frame_from_images(depth, intr=None,
 
     return Frame(depth=t(depth, torch.float32), labels=t(labels, torch.int32),
                  colors=t(colors, torch.float32), T_G_C=t(T_G_C, torch.float32))
+
+
+def stage(name: str):
+    """A profiler range "integrate_frame/<name>" around one stage of an
+    integrator's frame; a torch.profiler trace of the frame loop reads each
+    stage's time from it (chip_smoke.py)."""
+    return torch.profiler.record_function(f"integrate_frame/{name}")
+
+
+def prepare_points(frame: Frame, intr, cfg):
+    """Backproject + validity + weights: (pts_C, pts_G, origin, colors,
+    labels, weights, valid, is_clearing), per pixel. A point with a dynamic
+    label is skipped entirely, TSDF included."""
+    pts_C, px_valid = cam.backproject(frame.depth, intr)
+    labels = frame.labels.reshape(-1)
+    colors = frame.colors.reshape(-1, 3)
+    valid, is_clearing = tsdf_ops.point_validity(pts_C, cfg.tsdf)
+    valid = valid & px_valid & sem_ops.dynamic_label_mask(labels,
+                                                          cfg.semantic)
+    weights = tsdf_ops.voxel_weight(pts_C, cfg.tsdf)
+    pts_G = transforms.apply(frame.T_G_C, pts_C)
+    origin = transforms.translation(frame.T_G_C)
+    return pts_C, pts_G, origin, colors, labels, weights, valid, is_clearing
+
+
+def gather_packed(idx: torch.Tensor, *arrays):
+    """Row-gather every array at `idx`. The reference packs the arrays into
+    one matrix for a single TPU gather; here each is indexed directly."""
+    return tuple(a[idx] for a in arrays)
+
+
+def compact(order_mask: torch.Tensor, max_out: int, *arrays):
+    """Pack the entries where order_mask is True into the first slots, in
+    their original order, cut to `max_out`. Returns (kept_mask, gathered
+    arrays...); entries beyond max_out are dropped (fixed ray budget)."""
+    kept, order = stable_compact_order(order_mask, max_out)
+    return (kept,) + gather_packed(order, *arrays)

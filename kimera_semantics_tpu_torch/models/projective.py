@@ -52,10 +52,6 @@ FUSED_MAX_V3 = 8192
 STAGES = ("atlas", "candidates", "insert", "meta", "apply")
 
 
-def _stage(name: str):
-    return torch.profiler.record_function(f"integrate_frame/{name}")
-
-
 def make_plan(cfg: FusionConfig, intr: PinholeIntrinsics) -> mip_ops.MipPlan:
     return mip_ops.make_plan(intr.height, intr.width,
                              cfg.pipeline.patch_rows, cfg.pipeline.patch_cols)
@@ -131,9 +127,9 @@ def insert_candidates(grid: VoxelGrid, keys, active, cfg: FusionConfig):
 
 def allocate_from_atlas(grid: VoxelGrid, atlas, T_G_C, cfg: FusionConfig,
                         intr: PinholeIntrinsics, plan):
-    with _stage("candidates"):
+    with common.stage("candidates"):
         keys, valid = candidates_from_atlas(atlas, T_G_C, cfg, intr, plan)
-    with _stage("insert"):
+    with common.stage("insert"):
         return insert_candidates(grid, keys, valid, cfg)
 
 
@@ -148,11 +144,11 @@ def apply_frame(grid: VoxelGrid, atlas, T_G_C, fcoords, fslots, freal,
             "the unfused projective apply (fused_apply=False, or vps^3 > "
             f"{FUSED_MAX_V3}) needs the projective_sample_update and "
             "block_rmw_add kernels, which are not ported yet")
-    with _stage("meta"):
+    with common.stage("meta"):
         T_C_G = transforms.inverse(T_G_C)
         meta = kernels.block_meta(fcoords, freal, T_C_G, intr, plan,
                                   g.block_size)
-    with _stage("apply"):
+    with common.stage("apply"):
         kernels.projective_apply_fused(
             grid.wsum, grid.wsdf, grid.sem_count, grid.sem_delta, grid.wcolor,
             fslots, meta, T_C_G, atlas, cfg, intr, plan,
@@ -173,7 +169,7 @@ def integrate_frame(grid: VoxelGrid, frame: common.Frame, cfg: FusionConfig,
     dev = resolve(device)
     check_on(dev, grid=grid.wsum, depth=frame.depth, T_G_C=frame.T_G_C)
     plan = make_plan(cfg, intr)
-    with _stage("atlas"):
+    with common.stage("atlas"):
         atlas = mip_ops.build_atlas(frame.depth, frame.labels, frame.colors,
                                     plan)
     grid, fcoords, fslots, freal = allocate_from_atlas(

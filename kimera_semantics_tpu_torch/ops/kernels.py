@@ -1,12 +1,15 @@
-"""The projective main path's kernels: wrappers, plain versions, launch
-counts.
+"""The port's kernels: wrappers, plain versions, launch counts.
 
-Counterpart: kimera_semantics_tpu/ops/pallas_kernels.py. Each TPU kernel of
-the slice is a hand-written CUDA kernel (../csrc/*.cu, built by _build.py):
+Counterpart: kimera_semantics_tpu/ops/pallas_kernels.py. Each TPU kernel
+ported so far is a hand-written CUDA kernel (../csrc/*.cu, built by
+_build.py):
 
-  dda_job_stream          K1  csrc/dda.cu         (pallas_kernels.dda_job_stream)
-  block_meta              K2  csrc/block_meta.cu  (pallas_kernels.block_meta)
-  projective_apply_fused  K3  csrc/proj_apply.cu  (pallas_kernels.projective_apply_fused)
+  dda_job_stream          K1  csrc/dda.cu           (pallas_kernels.dda_job_stream)
+  block_meta              K2  csrc/block_meta.cu    (pallas_kernels.block_meta)
+  projective_apply_fused  K3  csrc/proj_apply.cu    (pallas_kernels.projective_apply_fused)
+  slot_resolve_stream     K6  csrc/slot_resolve.cu  (pallas_kernels.slot_resolve_stream,
+                                                     cube_geometry, cube_lut_supported)
+  block_rmw_add           K5  csrc/block_rmw.cu     (pallas_kernels.block_rmw_add)
 
 Each wrapper takes its plain PyTorch version (`*_plain`, same signature)
 only when its tensors lie on the CPU; on CUDA tensors it launches the kernel
@@ -28,7 +31,8 @@ from . import raycast
 from . import tsdf as tsdf_ops
 
 launches = {"dda_job_stream": 0, "block_meta": 0,
-            "projective_apply_fused": 0}
+            "projective_apply_fused": 0, "slot_resolve_stream": 0,
+            "block_rmw_add": 0}
 
 
 def reset_launches():
@@ -105,8 +109,6 @@ def dda_job_stream_plain(cfg: FusionConfig, S: int, origin3, point3, start3,
     c = _dda_consts(cfg)
     R = point3.shape[1]
     dev = point3.device
-    vec = point3 - origin3
-    dist_g = tsdf_ops.norm3(vec[0], vec[1], vec[2])
     curr, n_steps, sign, t_next, t_step = raycast.dda_init(
         start3 * c["inv"], end3 * c["inv"])
     ray_valid = job_valid.bool()
@@ -125,12 +127,9 @@ def dda_job_stream_plain(cfg: FusionConfig, S: int, origin3, point3, start3,
         in_b = ((bx >= -ext) & (bx < ext) & (by >= -ext) & (by < ext)
                 & (bz >= -ext) & (bz < ext))
         valid = (s <= n_steps) & ray_valid & in_b
-        # (v + 0.5) * vs - origin, dotted with vec: the reference's
-        # compiled form fuses each product into the add that follows.
-        A = [fma(curr[a].float() + 0.5, c["voxel_size"], -origin3[a])
-             for a in range(3)]
-        num = fma(A[2], vec[2], fma(A[0], vec[0], A[1] * vec[1]))
-        sdf = dist_g - num / torch.clamp(dist_g, min=1e-12)
+        sdf = tsdf_ops.projective_sdf_soa(origin3.T, point3.T, vx[None],
+                                          vy[None], vz[None],
+                                          c["voxel_size"])[0]
         if t.use_weight_dropoff:
             scale = (trunc + sdf) * c["dropoff_scale"]
             w = torch.where(sdf < -c["dropoff_eps"],
@@ -357,4 +356,266 @@ def projective_apply_fused(wsum, wsdf, sem_count, sem_delta, wcolor, slots,
                                           wcolor, slots, meta, tcg, atlas)),
                      p, _stream(dev)), "projective_apply_fused")
         launches["projective_apply_fused"] += 1
+    return wsum, wsdf, sem_count, sem_delta, wcolor
+
+
+# ---------------------------------------------------------------------------
+# K6: slot resolve against the frame's camera cube
+# ---------------------------------------------------------------------------
+
+TRASH_KEY = 0x7FFFFFFF
+SlotParams = _struct("SlotParams", [
+    "R", "S", "maxr", "per_frame", "side", "E", "ext", "v3", "cap", "pad",
+    "lab_shift", "gate_near", "f_trunc"])
+
+
+def cube_geometry(cfg: FusionConfig):
+    """Static cube extent: blocks within max_ray + trunc (+1 slack) of the
+    camera block. Returns (E, side, padded cell count)."""
+    reach = cfg.tsdf.max_ray_length_m + cfg.tsdf.truncation_distance
+    E = int(np.ceil(reach / cfg.grid.block_size)) + 1
+    side = 2 * E + 1
+    pad = ((side ** 3 + 127) // 128) * 128
+    return E, side, pad
+
+
+def cube_lut_supported(cfg: FusionConfig) -> bool:
+    """The same cube-size limit as the reference, so both packages take the
+    cube path on the same configurations (a direct load has no limit of
+    its own)."""
+    return cube_geometry(cfg)[2] <= 8192
+
+
+def slot_resolve_stream_plain(cfg: FusionConfig, cube_vals, cam_block,
+                              run_key, run_idx, local, w, wsdf, wc,
+                              step_valid, labels, informative,
+                              lab_shift: int, gate_near: bool):
+    """Plain version of K6: a gather from the frame cube per run, the run
+    slots broadcast to the steps, and the masked segment-reduce inputs."""
+    g = cfg.grid
+    E, side, _ = cube_geometry(cfg)
+    S, R = local.shape
+    dev = local.device
+    cam_block = cam_block.reshape(-1, 3)
+    per_frame = R // cube_vals.shape[0]
+    frame = torch.arange(R, device=dev) // per_frame
+    cb = cam_block[frame].T                                  # (3, R)
+    ext = g.world_extent_blocks
+    rk = run_key
+    b = [((rk >> sh) & 0x3FF) - ext - cb[a][None, :] + E
+         for a, sh in enumerate((20, 10, 0))]
+    in_c = rk >= 0
+    for c in b:
+        in_c = in_c & (c >= 0) & (c < side)
+    cidx = torch.where(in_c, (b[0] * side + b[1]) * side + b[2], 0)
+    vals = cube_vals[frame[None, :].expand_as(cidx), cidx.long()]
+    run_slots = torch.where(in_c, vals.to(torch.int32), -1)
+    ok = run_idx >= 0
+    slot = torch.where(ok, run_slots.gather(
+        0, run_idx.clamp(min=0).long()), -1)
+    v = step_valid & (slot >= 0) & (slot < g.block_capacity)
+    key = slot * g.vps3 + local
+    k2, w_m, wsdf_off, _, cnt = segment_inputs(
+        v, key, w, wsdf, wc, labels, informative,
+        f32(cfg.tsdf.truncation_distance), lab_shift, gate_near)
+    return k2, w_m, wsdf_off, cnt, key, v, run_slots
+
+
+def segment_inputs(v, key, w, wsdf, wc, labels, informative, trunc,
+                   lab_shift: int, gate_near: bool):
+    """The masked segment-reduce inputs of one (S, R) update stream, shared
+    by K6's plain version and the hash-lookup path of ops/integrate.py:
+    k2 = (key << lab_shift) | label (TRASH_KEY where v is false), w and
+    wsdf + trunc * w masked by v, the semantic gate (v, and wc > 0 with
+    gate_near) and its count where the job is informative. labels (R,)
+    int32 must fit lab_shift bits; informative (R,) bool. Returns (k2, w_m,
+    wsdf_off, sem_upd, cnt)."""
+    k2 = torch.where(v, (key << lab_shift) | labels[None, :], TRASH_KEY)
+    w_m = torch.where(v, w, 0.0)
+    wsdf_off = torch.where(v, fma(w, trunc, wsdf), 0.0)
+    sem_upd = v & (wc > 0.0) if gate_near else v
+    cnt = torch.where(sem_upd & informative[None, :], 1.0, 0.0)
+    return k2, w_m, wsdf_off, sem_upd, cnt
+
+
+def slot_resolve_stream(cfg: FusionConfig, cube_vals, cam_block, run_key,
+                        run_idx, local, w, wsdf, wc, step_valid, labels,
+                        informative, lab_shift: int, gate_near: bool):
+    """Resolve the block slots of one expanded stream against the frame
+    cube(s) and emit the segment-reduce inputs.
+
+    cube_vals: (B, pad) float32 slot per cube cell (-1 missing), from
+    ops/integrate.py frame_cube; B > 1 when the ray axis concatenates B
+    frames in equal chunks. cam_block: (B, 3) or (3,) int32. run_key/run_idx
+    (MAXR, R)/(S, R) from K1; local/w/wsdf/wc (S, R); step_valid (S, R)
+    bool; labels (R,) int32; informative (R,) bool. Returns (k2, w_m,
+    wsdf_off, cnt, key, valid_upd, run_slots): k2 (S, R) int32
+    (voxel << lab_shift | label, TRASH_KEY where invalid), the masked w,
+    wsdf + trunc * w and semantic count, the raw flat voxel key, valid_upd
+    (S, R) bool and run_slots (MAXR, R) int32 (-1 where unresolved)."""
+    if _on_cpu(local):
+        return slot_resolve_stream_plain(
+            cfg, cube_vals, cam_block, run_key, run_idx, local, w, wsdf, wc,
+            step_valid, labels, informative, lab_shift, gate_near)
+    g = cfg.grid
+    E, side, pad = cube_geometry(cfg)
+    dev = local.device
+    S, R = local.shape
+    MAXR = run_key.shape[0]
+    B = cube_vals.shape[0]
+    if R % B:
+        raise ValueError(f"slot_resolve_stream: R {R} is not a multiple of "
+                         f"the {B} frame cubes")
+    cam = cam_block.reshape(-1, 3).to(torch.int32).contiguous()
+    _check(cube_vals, "cube_vals", torch.float32, (B, pad), dev)
+    _check(cam, "cam_block", torch.int32, (B, 3), dev)
+    _check(run_key, "run_key", torch.int32, (MAXR, R), dev)
+    for name, x, dt in (("run_idx", run_idx, torch.int32),
+                        ("local", local, torch.int32),
+                        ("w", w, torch.float32), ("wsdf", wsdf, torch.float32),
+                        ("wc", wc, torch.float32)):
+        _check(x, name, dt, (S, R), dev)
+    valid = step_valid.contiguous()
+    labs = labels.to(torch.int32).contiguous()
+    inform = informative.contiguous()
+    _check(valid, "step_valid", torch.bool, (S, R), dev)
+    _check(labs, "labels", torch.int32, (R,), dev)
+    _check(inform, "informative", torch.bool, (R,), dev)
+    i32, f32_ = torch.int32, torch.float32
+    outs = [torch.empty((S, R), dtype=d, device=dev)
+            for d in (i32, f32_, f32_, f32_, i32, torch.bool)]
+    run_slots = torch.empty((MAXR, R), dtype=i32, device=dev)
+    p = SlotParams(R=R, S=S, maxr=MAXR, per_frame=R // B, side=side, E=E,
+                   ext=g.world_extent_blocks, v3=g.vps3,
+                   cap=g.block_capacity, pad=pad, lab_shift=lab_shift,
+                   gate_near=int(gate_near),
+                   f_trunc=f32(cfg.tsdf.truncation_distance))
+    if R > 0:
+        fn = _build.bind("slot_resolve", "ksd_slot_resolve",
+                         (ctypes.c_void_p,) * 11 + (SlotParams,)
+                         + (ctypes.c_void_p,) * 8)
+        _raise_on(fn(*(_ptr(x) for x in (cube_vals, cam, run_key, run_idx,
+                                          local, w, wsdf, wc, valid, labs,
+                                          inform)), p,
+                     *(_ptr(x) for x in outs + [run_slots]), _stream(dev)),
+                  "slot_resolve_stream")
+        launches["slot_resolve_stream"] += 1
+    k2, w_m, wsdf_off, cnt, key, vu = outs
+    return k2, w_m, wsdf_off, cnt, key, vu, run_slots
+
+
+# ---------------------------------------------------------------------------
+# K5: block read-modify-write add
+# ---------------------------------------------------------------------------
+
+RmwParams = _struct("RmwParams", [
+    "K", "V3", "L", "P", "rows_total", "trash_group", "sem_mode", "f_lk"])
+SEM_MODES = ("onehot", "dense", "packed")
+
+
+def _sem_mode(L: int, d_sem, sem_packed_ranks: int) -> str:
+    """The semantic delta form, decided as the reference decides it."""
+    if d_sem is None:
+        return "onehot"
+    if d_sem.shape[0] == L and sem_packed_ranks != L:
+        return "dense"
+    return "packed"
+
+
+def _tile_rows(slots: torch.Tensor, rows_total: int):
+    """(src, dst): the delta rows of live tiles and the channel rows they
+    add into. Tile i's 8 rows go to the rows of group slots[8 i] // 8;
+    tiles of the trash group (or outside the live rows) are skipped."""
+    K = slots.shape[0]
+    groups = torch.div(slots[::8], 8, rounding_mode="floor")
+    k = torch.arange(K, device=slots.device)
+    live = ((groups >= 0) & (groups < (rows_total - 8) // 8))[k // 8]
+    dst = groups.long()[k // 8] * 8 + k % 8
+    return k[live], dst[live]
+
+
+def block_rmw_add_plain(wsum, wsdf, sem_count, sem_delta, wcolor, slots,
+                        d_w, d_wsdf, d_cnt, d_lab, d_wc, lk_delta,
+                        d_sem=None, sem_packed_ranks=0):
+    """Plain version of K5: the same adds by row indexing."""
+    L = sem_delta.shape[0]
+    mode = _sem_mode(L, d_sem, sem_packed_ranks)
+    src, dst = _tile_rows(slots, wsum.shape[0])
+    for ch, d in ((wsum, d_w), (wsdf, d_wsdf), (sem_count, d_cnt)):
+        ch[dst] = ch[dst] + d[src]
+    sem = sem_delta[:, dst]
+    labs = torch.arange(L, device=sem.device)[:, None, None]
+    if mode == "onehot":
+        sem = sem + torch.where(labs == d_lab[src][None],
+                                d_cnt[src][None] * f32(lk_delta), 0.0)
+    elif mode == "dense":
+        sem = fma(d_sem[:, src], f32(lk_delta), sem)
+    else:
+        for r in range(d_sem.shape[0]):
+            v = d_sem[r, src]
+            cr = torch.floor(v * (1.0 / 32.0))
+            lr = (v - 32.0 * cr).to(torch.int32)
+            sem = sem + torch.where(labs == lr[None],
+                                    cr[None] * f32(lk_delta), 0.0)
+    sem_delta[:, dst] = sem
+    if d_wc is not None:
+        wcolor[:, dst] = wcolor[:, dst] + d_wc[src].permute(1, 0, 2)
+    return wsum, wsdf, sem_count, sem_delta, wcolor
+
+
+def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
+                  d_wsdf, d_cnt, d_lab, d_wc, lk_delta, d_sem=None,
+                  sem_packed_ranks=0):
+    """grid_channel[rows of slots] += delta, IN PLACE on the channels (the
+    JAX kernel aliases them instead); returns the five channels.
+
+    `slots` (K,) is group-aligned: 8-row tile i adds into the 8 rows of
+    channel tile group slots[8 i] // 8, distinct per tile; tiles of the
+    trash group (the last 8 rows) are skipped. Deltas: d_w/d_wsdf/d_cnt
+    (K, V3) float32; the semantic votes as one label per voxel (d_lab
+    (K, V3) int32, counts d_cnt; onehot), dense counts per label
+    (d_sem (L, K, V3)) or packed rank planes (d_sem (P, K, V3) of
+    count * 32 + label; exact while count < 2^19); d_wc (K, 3, V3), or None
+    when the colour channels take no update (only ColorMode.COLOR blends
+    measured colour). Only nonzero deltas are read-modify-written: adding
+    +0.0 changes no value the grid holds."""
+    if _on_cpu(wsum):
+        return block_rmw_add_plain(wsum, wsdf, sem_count, sem_delta, wcolor,
+                                   slots, d_w, d_wsdf, d_cnt, d_lab, d_wc,
+                                   lk_delta, d_sem, sem_packed_ranks)
+    dev = wsum.device
+    rows, V3, L = _check_channels(wsum, wsdf, sem_count, sem_delta, wcolor,
+                                  dev)
+    K = d_w.shape[0]
+    if K % 8 or rows % 8:
+        raise ValueError("block_rmw_add: K and the channel rows must be "
+                         "multiples of 8")
+    mode = _sem_mode(L, d_sem, sem_packed_ranks)
+    _check(slots, "slots", torch.int32, (K,), dev)
+    for name, x in (("d_w", d_w), ("d_wsdf", d_wsdf), ("d_cnt", d_cnt)):
+        _check(x, name, torch.float32, (K, V3), dev)
+    P = 0
+    if mode == "onehot":
+        _check(d_lab, "d_lab", torch.int32, (K, V3), dev)
+        sem_ptr = None
+    else:
+        P = d_sem.shape[0]
+        _check(d_sem, "d_sem", torch.float32, (P, K, V3), dev)
+        sem_ptr = d_sem
+    if d_wc is not None:
+        _check(d_wc, "d_wc", torch.float32, (K, 3, V3), dev)
+    p = RmwParams(K=K, V3=V3, L=L, P=P, rows_total=rows,
+                  trash_group=(rows - 8) // 8,
+                  sem_mode=SEM_MODES.index(mode), f_lk=f32(lk_delta))
+    if K > 0:
+        fn = _build.bind("block_rmw", "ksd_block_rmw_add",
+                         (ctypes.c_void_p,) * 12 + (RmwParams,
+                                                    ctypes.c_void_p))
+        ptr = lambda x: _ptr(x) if x is not None else None  # noqa: E731
+        _raise_on(fn(*(ptr(x) for x in (wsum, wsdf, sem_count, sem_delta,
+                                         wcolor, slots, d_w, d_wsdf, d_cnt,
+                                         d_lab if mode == "onehot" else None,
+                                         sem_ptr, d_wc)),
+                     p, _stream(dev)), "block_rmw_add")
+        launches["block_rmw_add"] += 1
     return wsum, wsdf, sem_count, sem_delta, wcolor

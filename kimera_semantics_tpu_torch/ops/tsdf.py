@@ -1,7 +1,7 @@
 """Projective TSDF update math.
 
 Counterpart: kimera_semantics_tpu/ops/tsdf.py (point_validity,
-update_terms): voxblox isPointValid and updateTsdfVoxel's weight drop-off
+voxel_weight, projective_sdf_soa, update_terms): voxblox isPointValid and updateTsdfVoxel's weight drop-off
 and color gate, as batched tensor functions. Rounding follows the
 reference's compiled form (core/fp.py): the norm is a fused-multiply-add
 chain, and the drop-off division by a constant is a reciprocal multiply.
@@ -34,6 +34,34 @@ def point_validity(points_C: torch.Tensor, cfg: TsdfConfig):
     is_clearing = beyond & cfg.allow_clear
     valid = finite & ~too_close & (~beyond | cfg.allow_clear)
     return valid, is_clearing
+
+
+def voxel_weight(points_C: torch.Tensor, cfg: TsdfConfig) -> torch.Tensor:
+    """voxblox `getVoxelWeight`: 1 if const-weight else 1/z^2 (camera-frame
+    z)."""
+    if cfg.use_const_weight:
+        return torch.ones(points_C.shape[:-1], dtype=torch.float32,
+                          device=points_C.device)
+    z = points_C[..., 2].abs()
+    return torch.where(z > 1e-6, 1.0 / torch.clamp(z * z, min=1e-12), 0.0)
+
+
+def projective_sdf_soa(origin: torch.Tensor, points_G: torch.Tensor, vx, vy,
+                       vz, voxel_size: float) -> torch.Tensor:
+    """voxblox `computeDistance` over (S, R) voxel-coordinate planes: the
+    signed distance of each voxel centre to its ray's surface point along
+    the ray, |p - o| - (c - o).(p - o) / |p - o|; origin (3,) or (R, 3),
+    points_G (R, 3). Each product is fused into the add that follows, as
+    in the reference's compiled form and the DDA kernel (K1's plain
+    version computes its sdf here)."""
+    origin = origin.expand(points_G.shape)
+    vec = points_G - origin
+    dist = norm3(vec[:, 0], vec[:, 1], vec[:, 2])
+    A = [fma(c.float() + 0.5, voxel_size, -origin[None, :, a])
+         for a, c in enumerate((vx, vy, vz))]
+    num = fma(A[2], vec[None, :, 2], fma(A[0], vec[None, :, 0],
+                                         A[1] * vec[None, :, 1]))
+    return dist[None, :] - num / torch.clamp(dist, min=1e-12)[None, :]
 
 
 def dropoff_scale(cfg: TsdfConfig, voxel_size: float) -> float:

@@ -21,8 +21,12 @@ import kimera_semantics_tpu_torch as kt
 from kimera_semantics_tpu_torch import config as tcfg
 from kimera_semantics_tpu_torch.core import transforms
 from kimera_semantics_tpu_torch.grid import blocks
+from kimera_semantics_tpu_torch.grid import hash as bhash
 from kimera_semantics_tpu_torch.io.dataset import SyntheticDataset
+from kimera_semantics_tpu_torch.models import fast, merged
 from kimera_semantics_tpu_torch.models import projective as proj
+from kimera_semantics_tpu_torch.ops import carve
+from kimera_semantics_tpu_torch.ops import integrate
 from kimera_semantics_tpu_torch.ops import kernels
 from kimera_semantics_tpu_torch.ops import mip as mip_ops
 from kimera_semantics_tpu_torch.ops import raycast
@@ -161,7 +165,7 @@ def test_apply(cuda, kw, region):
 
 @contextlib.contextmanager
 def plain_kernels():
-    names = ("dda_job_stream", "block_meta", "projective_apply_fused")
+    names = tuple(kernels.launches)
     saved = {n: getattr(kernels, n) for n in names}
     try:
         for n in names:
@@ -184,13 +188,193 @@ def test_main_path_matches_plain(cuda):
     kernels.reset_launches()
     for f in frames:
         proj.integrate_frame(g, f, cfg, INTR, device=cuda)
-    assert all(v == 3 for v in kernels.launches.values())
+    assert kernels.launches == dict(
+        dda_job_stream=3, block_meta=3, projective_apply_fused=3,
+        slot_resolve_stream=0, block_rmw_add=0)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
             proj.integrate_frame(ref, f, cfg, INTR, device=cuda)
     n = int(g.n_blocks)
     assert n == int(ref.n_blocks) > 0 and int(g.overflow) == 0
+    coords = g.block_coords[:n]
+    a = blocks.lookup_slots(g, coords, cfg.grid).long()
+    b = blocks.lookup_slots(ref, coords, cfg.grid).long()
+    assert bool((b < cfg.grid.block_capacity).all())
+    for name in ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor"):
+        x, y = getattr(g, name), getattr(ref, name)
+        x, y = (x[:, a], y[:, b]) if x.dim() == 3 else (x[a], y[b])
+        assert torch.equal(x, y), name
+
+
+# ---------------------------------------------------------------------------
+# The ray integrators' kernels: K6 slot_resolve_stream, K5 block_rmw_add
+# ---------------------------------------------------------------------------
+
+def ray_config(carve_mode="projective", near_surface=False, **pipeline):
+    cfg = config(near_surface=near_surface)
+    return dataclasses.replace(
+        cfg, tsdf=dataclasses.replace(cfg.tsdf, carve_mode=carve_mode,
+                                      band_density="matched"),
+        pipeline=dataclasses.replace(
+            cfg.pipeline, **{**dict(max_rays=4096, segment_budget=1 << 16,
+                                    carve_budget=4096), **pipeline}))
+
+
+def slot_inputs(cfg, dev, n_frames=1):
+    """K6's inputs as the fast path makes them: the band jobs of
+    `n_frames` frames concatenated along the ray axis, expanded by K1,
+    their runs inserted, and the frames' cubes (every 5th cell cleared, so
+    some runs miss)."""
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=dev)
+    grid = blocks.create(cfg, device=dev)
+    jobs, origins = [], []
+    for i in range(n_frames):
+        grid, batches, origin = fast._frame_batches(grid, ds.frame(i + 1),
+                                                    cfg, INTR)
+        (band, S), = batches
+        jobs.append(band)
+        origins.append(origin)
+    band = carve.JobBatch(*(torch.cat([getattr(j, f) for j in jobs])
+                            for f in carve.JOB_FIELDS))
+    st = integrate.expand_jobs(cfg, band, S)
+    g = cfg.grid
+    keys = st.run_key.reshape(-1)
+    (grid.table_keys, grid.table_slots, grid.block_coords, grid.n_blocks,
+     _) = bhash.insert_compacted(
+        grid.table_keys, grid.table_slots, grid.block_coords, grid.n_blocks,
+        keys, keys >= 0, g.table_size, g.block_capacity,
+        g.world_extent_blocks)
+    cube, cam = integrate.frame_cube(grid, cfg, torch.stack(origins))
+    cube[:, ::5] = -1.0
+    lab_shift = max(1, (g.num_labels - 1).bit_length())
+    inform = sem_ops.informative(st.labels) & st.job_valid
+    return (cfg, cube, cam, st.run_key, st.run_idx, st.local, st.w,
+            st.w_sdf, st.wc_gate, st.step_valid, st.labels, inform,
+            lab_shift)
+
+
+@pytest.mark.parametrize("n_frames", [1, 2])
+@pytest.mark.parametrize("gate_near", [False, True])
+def test_slot_resolve(cuda, n_frames, gate_near):
+    args = slot_inputs(ray_config(near_surface=gate_near), cuda, n_frames)
+    before = kernels.launches["slot_resolve_stream"]
+    got = kernels.slot_resolve_stream(*args, gate_near)
+    assert kernels.launches["slot_resolve_stream"] == before + 1
+    ref = kernels.slot_resolve_stream_plain(*args, gate_near)
+    assert bool(ref[5].any()) and bool((ref[6] == -1).any())
+    for name, a, b in zip(("k2", "w", "wsdf", "cnt", "key", "valid",
+                           "run_slots"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def rmw_inputs(mode, color=False, V3=512, L=21, K=64, capacity=256, P=4,
+               seed=0):
+    """K5's inputs in numpy: grid channels (capacity + 8 rows), a
+    group-aligned slot list whose last two tiles are trash tiles, and
+    sparse deltas; the semantic votes as one label per voxel (onehot),
+    counts per label (dense) or P rank planes of count * 32 + label with
+    distinct labels per voxel (packed)."""
+    rng = np.random.RandomState(seed)
+    rows = capacity + 8
+    f = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)  # noqa
+    chans = [f(0, 3, rows, V3), f(-1, 1, rows, V3),
+             rng.randint(0, 9, (rows, V3)).astype(np.float32),
+             f(-6, 0, L, rows, V3), f(0, 500, 3, rows, V3)]
+    n_live = K // 8 - 2
+    groups = np.concatenate([rng.choice(capacity // 8, n_live, replace=False),
+                             [capacity // 8] * 2])
+    slots = (np.repeat(groups, 8) * 8 + np.tile(np.arange(8), K // 8)
+             ).astype(np.int32)
+    hit = rng.rand(K, V3) < 0.3
+    d_w = np.where(hit, f(0.1, 2, K, V3), 0).astype(np.float32)
+    d_wsdf = np.where(hit, f(-0.3, 0.3, K, V3), 0).astype(np.float32)
+    d_cnt = np.where(hit & (rng.rand(K, V3) < 0.7),
+                     rng.randint(1, 6, (K, V3)), 0).astype(np.float32)
+    d_lab = d_sem = None
+    if mode == "onehot":
+        d_lab = rng.randint(0, L, (K, V3)).astype(np.int32)
+    elif mode == "dense":
+        d_sem = np.where(rng.rand(L, K, V3) < 0.05,
+                         rng.randint(1, 5, (L, K, V3)), 0).astype(np.float32)
+    else:
+        labs = np.argsort(rng.rand(L, K, V3), axis=0)[:P]
+        cnt = np.where(rng.rand(P, K, V3) < np.linspace(0.6, 0.1, P)[:, None,
+                                                                     None],
+                       rng.randint(1, 40, (P, K, V3)), 0)
+        d_sem = np.where(cnt > 0, cnt * 32 + labs, 0).astype(np.float32)
+    d_wc = (np.where(hit[:, None], f(0, 300, K, 3, V3), 0).astype(np.float32)
+            if color else None)
+    return chans, slots, (d_w, d_wsdf, d_cnt, d_lab, d_wc), d_sem
+
+
+def rmw_call(fn, chans, slots, deltas, d_sem, lk, P, dev):
+    t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa
+    chs = [t(c) for c in chans]
+    fn(*chs, t(slots), *(t(d) for d in deltas), lk, d_sem=t(d_sem),
+       sem_packed_ranks=P if d_sem is not None and len(d_sem) == P else 0)
+    return chs
+
+
+@pytest.mark.parametrize("mode", ["onehot", "dense", "packed"])
+@pytest.mark.parametrize("color", [False, True])
+def test_block_rmw(cuda, mode, color):
+    chans, slots, deltas, d_sem = rmw_inputs(mode, color)
+    lk = 1.3862943649291992
+    before = kernels.launches["block_rmw_add"]
+    got = rmw_call(kernels.block_rmw_add, chans, slots, deltas, d_sem, lk, 4,
+                   cuda)
+    assert kernels.launches["block_rmw_add"] == before + 1
+    ref = rmw_call(kernels.block_rmw_add_plain, chans, slots, deltas, d_sem,
+                   lk, 4, cuda)
+    assert not torch.equal(ref[3], torch.from_numpy(chans[3]).to(cuda))
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def test_block_rmw_wide(cuda):
+    """V3 = 32768 (32^3 blocks): the lane chunks of one tile span the whole
+    row."""
+    chans, slots, deltas, d_sem = rmw_inputs("onehot", True, V3=32768, L=4,
+                                             K=32, capacity=32)
+    got = rmw_call(kernels.block_rmw_add, chans, slots, deltas, d_sem, 1.7, 4,
+                   cuda)
+    ref = rmw_call(kernels.block_rmw_add_plain, chans, slots, deltas, d_sem,
+                   1.7, 4, cuda)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model,carve_mode", [
+    (fast, "projective"), (fast, "decimated"), (fast, "full"),
+    (merged, "projective"), (merged, "decimated")])
+def test_ray_paths_match_plain(cuda, model, carve_mode):
+    """Three frames through the fast or merged integrate_frame: the kernels'
+    grid equals the plain versions' grid block for block; K6 launched once
+    per job stream (two in carve_mode "decimated": band and carve jobs) and
+    K5 once per frame."""
+    cfg = ray_config(carve_mode)
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = [ds.frame(i) for i in range(3)]
+    g = blocks.create(cfg, device=cuda)
+    kernels.reset_launches()
+    for f in frames:
+        model.integrate_frame(g, f, cfg, INTR, device=cuda)
+    streams = 2 if carve_mode == "decimated" else 1
+    assert kernels.launches["slot_resolve_stream"] == 3 * streams
+    assert kernels.launches["dda_job_stream"] == 3 * (
+        streams + (carve_mode == "projective"))
+    assert kernels.launches["block_rmw_add"] == 3
+    ref = blocks.create(cfg, device=cuda)
+    with plain_kernels():
+        for f in frames:
+            model.integrate_frame(ref, f, cfg, INTR, device=cuda)
+    n = int(g.n_blocks)
+    assert n == int(ref.n_blocks) > 0 and int(g.overflow) == 0
+    assert int(g.dropped_rays) == int(ref.dropped_rays)
     coords = g.block_coords[:n]
     a = blocks.lookup_slots(g, coords, cfg.grid).long()
     b = blocks.lookup_slots(ref, coords, cfg.grid).long()

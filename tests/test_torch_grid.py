@@ -187,3 +187,55 @@ def test_readouts_on_carried_grid():
     with pytest.raises(ValueError):
         interop.grid_from_numpy({**arrays, "wsum": arrays["wsum"][:-1]}, ct,
                                 device="cpu")
+
+
+@pytest.mark.parametrize("capacity", [768, 40])
+def test_insert_compacted_and_unique_keys_match(capacity):
+    """The ray integrators' run insert: duplicate-heavy keys compacted to
+    their unique values first; the same key set, n_blocks and overflow as
+    the JAX insert (at capacity 40 the uniques overflow)."""
+    cj, _ = configs(capacity)
+    g = cj.grid
+    rng = np.random.RandomState(3)
+    keys, active = random_keys(rng, 3000, g.world_extent_blocks, spread=4)
+    keys = np.concatenate([keys, keys[:1000]])
+    active = np.concatenate([active, active[:1000]])
+    uj = jhash.unique_keys(jnp.asarray(keys), jnp.asarray(active), 256)
+    ut = thash.unique_keys(T(keys), T(active), 256)
+    np.testing.assert_array_equal(N(ut[0]), N(uj[0]))
+    assert int(ut[1]) == int(uj[1]) > 0
+    rj = jhash.insert_compacted(
+        jnp.full((g.table_size,), -1, jnp.int32),
+        jnp.full((g.table_size,), -1, jnp.int32),
+        jnp.zeros((capacity, 3), jnp.int32), jnp.int32(0),
+        jnp.asarray(keys), jnp.asarray(active), g.table_size, capacity,
+        g.world_extent_blocks)
+    rt = thash.insert_compacted(
+        torch.full((g.table_size,), -1, dtype=torch.int32),
+        torch.full((g.table_size,), -1, dtype=torch.int32),
+        torch.zeros((capacity, 3), dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32), T(keys), T(active),
+        g.table_size, capacity, g.world_extent_blocks)
+    nb = int(rj[3])
+    assert int(rt[3]) == nb > 0 and int(rt[4]) == int(rj[4])
+    assert (int(rj[4]) > 0) == (capacity < 256)
+    live = lambda k: set(N(k)[N(k) >= 0].tolist())  # noqa: E731
+    assert live(rt[0]) == live(rj[0])
+    assert set(map(tuple, N(rt[2])[:nb])) == set(map(tuple, N(rj[2])[:nb]))
+
+
+def test_voxel_block_maps_match():
+    rng = np.random.RandomState(4)
+    pts = rng.uniform(-20, 20, (4000, 3)).astype(np.float32)
+    pts[:8] = [[0, 0, 0], [-0.2, 0.2, 0.4], [0.6, -0.6, 1e-7],
+               [-1e-7, 0, 0], [0.19999999, 0, 0], [-0.4, -0.8, 1.2],
+               [3.0, -3.0, 0.6], [-0.6, 0.0, -1.0]]
+    jv = jax.jit(lambda p: jblocks.point_to_voxel(p, 1.0 / 0.2))(pts)
+    tv = tblocks.point_to_voxel(T(pts), 1.0 / 0.2)
+    np.testing.assert_array_equal(N(tv), N(jv))
+    for vps in (8, 16):
+        jb, jl = jblocks.voxel_to_block_local(jv, vps)
+        tb, tl = tblocks.voxel_to_block_local(tv, vps)
+        np.testing.assert_array_equal(N(tb), N(jb))
+        np.testing.assert_array_equal(N(tl), N(jl))
+    assert (N(tv) < 0).any()

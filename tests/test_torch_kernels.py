@@ -4,6 +4,7 @@ interpreted on the CPU, and vs the JAX package's XLA path. The CUDA kernels
 themselves are held against their plain versions in test_torch_cuda.py."""
 
 import dataclasses
+import enum
 import functools
 
 import numpy as np
@@ -260,3 +261,78 @@ def test_patch_sampling_matches():
     st = tproj.sample_patches(pt, T(row), T(col))
     np.testing.assert_array_equal(N(st), N(sj))
     assert (N(st)[(row < 0) | (col >= plan.col_window)] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# K6 slot_resolve_stream and K5 block_rmw_add
+# ---------------------------------------------------------------------------
+
+def to_jax_config(cfg):
+    """The JAX package's FusionConfig with the same fields as the port's."""
+    def conv(obj):
+        if dataclasses.is_dataclass(obj):
+            return getattr(jcfg, type(obj).__name__)(**{
+                f.name: conv(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)})
+        if isinstance(obj, enum.Enum):
+            return getattr(jcfg, type(obj).__name__)(obj.value)
+        return obj
+    return conv(cfg)
+
+
+@pytest.mark.parametrize("n_frames,gate_near", [(1, False), (1, True),
+                                                (2, False)])
+def test_slot_resolve_plain_matches_pallas(n_frames, gate_near):
+    """K6's plain version vs the Pallas kernel run interpreted, on the band
+    stream K1 makes of one frame or of two frames side by side (one cube
+    each), with every 5th cube cell missing: all seven outputs exact."""
+    from test_torch_cuda import ray_config, slot_inputs
+    args = slot_inputs(ray_config(near_surface=gate_near),
+                       torch.device("cpu"), n_frames)
+    cfg, cube, cam = args[:3]
+    assert cube.shape[0] == n_frames
+    ref = pk.slot_resolve_stream(
+        to_jax_config(cfg), *(jnp.asarray(N(a)) for a in args[1:12]),
+        args[12], gate_near, interpret=True)
+    got = kernels.slot_resolve_stream(*args, gate_near)
+    assert bool(N(got[5]).any()) and bool((N(got[6]) == -1).any())
+    assert bool((N(got[4]) < 0).any())      # raw keys of unresolved steps
+    for name, a, b in zip(("k2", "w", "wsdf", "cnt", "key", "valid",
+                           "run_slots"), ref, got):
+        np.testing.assert_array_equal(N(b), N(a), err_msg=name)
+
+
+@pytest.mark.parametrize("mode,color,wide", [
+    ("onehot", False, False), ("onehot", True, False), ("dense", False, False),
+    ("packed", False, False), ("packed", True, False), ("onehot", True, True)])
+def test_block_rmw_plain_matches_pallas(mode, color, wide):
+    """K5's plain version vs the Pallas kernel run interpreted: onehot,
+    dense and packed semantic votes, trash tiles, and (wide) the V3 = 32768
+    case of tests/test_pallas.py, whose lanes the Pallas kernel splits. The
+    trash group's rows are garbage by the kernel's contract and are not
+    compared."""
+    from test_torch_cuda import rmw_call, rmw_inputs
+    kw = dict(V3=32768, L=4, K=32, capacity=32) if wide else {}
+    chans, slots, deltas, d_sem = rmw_inputs(mode, color, **kw)
+    lk = float(np.float32(1.3862943649291992))
+    d_w, d_wsdf, d_cnt, d_lab, d_wc = deltas
+    K, V3 = d_w.shape
+    P = 4 if mode == "packed" else 0
+    ref = pk.block_rmw_add(
+        *(jnp.asarray(a) for a in chans), jnp.asarray(slots),
+        jnp.asarray(d_w), jnp.asarray(d_wsdf), jnp.asarray(d_cnt),
+        None if d_lab is None else jnp.asarray(d_lab),
+        jnp.asarray(d_wc if color else np.zeros((K, 3, V3), np.float32)),
+        lk_delta=lk, interpret=True,
+        d_sem=None if d_sem is None else jnp.asarray(d_sem),
+        sem_packed_ranks=P)
+    got = rmw_call(kernels.block_rmw_add, chans, slots, deltas, d_sem, lk, P,
+                   torch.device("cpu"))
+    live = chans[0].shape[0] - 8
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), ref, got):
+        a, b = N(a), N(b)
+        a, b = (a[:, :live], b[:, :live]) if a.ndim == 3 else (a[:live],
+                                                              b[:live])
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    assert not np.array_equal(N(got[3])[:, :live], chans[3][:, :live])
