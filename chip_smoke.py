@@ -7,17 +7,20 @@ NVIDIA GPU.
 Phases, each of which must complete:
   1. build the CUDA kernels from kimera_semantics_tpu_torch/csrc (nvcc, one
      process per source, in parallel);
-  2. hold each kernel of the projective main path against its plain PyTorch
-     version on the card, at the main path's shapes, and time both, and
-     time an empty kernel (csrc/empty.cu) for the launch floor;
+  2. hold each kernel of the projective main path (K1-K3, and K4 at the
+     same frame list) against its plain PyTorch version on the card, at
+     the main path's shapes, and time both, and time an empty kernel
+     (csrc/empty.cu) for the launch floor;
   3. drive the projective main path (models/projective.py integrate_frame)
      at the canonical configuration of bench.py (projective method,
      640x480, 0.05 m voxels, 16^3 blocks) over 4 warm-up and 24 timed
      synthetic frames, check that every kernel launched once per frame and
      that no block overflowed; trace the same loop on a fresh grid with
      torch.profiler for the time of each stage of integrate_frame and the
-     device's busy share; then re-run the same frames through the plain
-     versions on the card and compare the grids block by block;
+     device's busy share; re-run the same frames through the plain
+     versions on the card and compare the grids block by block; then drive
+     them with fused_apply=False (K4 then K5 per frame, K3 never) and hold
+     that grid to the fused one bit for bit;
   4. capture the inputs of the ray integrators' kernels from one frame of
      the fast integrator at bench.py's fast configuration (K1 at voxel
      granularity, K6 slot_resolve_stream, K5 block_rmw_add in packed
@@ -33,7 +36,17 @@ Phases, each of which must complete:
      warm-up and 8 timed frames, with the same launch and overflow checks,
      compare its grid block by block with a re-run through the plain
      versions, and trace it for its stages;
-  7. report per-stage times, the kernel table (one JSON line), the card's
+  7. the serving output: K4 at 32^3 literal storage (V3 = 32768) against
+     its plain version; the CLI (`node batch --preset demo --method
+     projective --storage-vps 32`) over 4 + 24 frames written with
+     save_directory_dataset, with its launches, overflow, PLY and a .vxblx
+     that reloads to the grid's TSDF voxels; the stream server at the demo
+     preset with pipelined meshing every 5 frames (frames/s, cycle ms,
+     stall), the snapshot check of the async cycle, the mesh cache against
+     generate_mesh (its seams counted, then every block re-meshed), and a
+     .ksdv round trip; `sim-eval --preset eval`
+     against the JAX package's CPU values;
+  8. report per-stage times, the kernel table (one JSON line), the card's
      name and power limit, and last the one-line JSON result.
 
 Exits non-zero, with no result line, on any failure, including when no
@@ -47,8 +60,10 @@ import ctypes
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -100,6 +115,7 @@ def cuda_time(fn, reps: int) -> float:
 KERNEL_SYMBOLS = {"dda_job_stream": "dda_kernel",
                   "block_meta": "block_meta_kernel",
                   "projective_apply_fused": "proj_apply_kernel",
+                  "projective_sample_update": "proj_sample_kernel",
                   "slot_resolve_stream": "slot_resolve_kernel",
                   "block_rmw_add": "block_rmw_kernel",
                   "empty": "empty_kernel"}
@@ -498,7 +514,66 @@ def ray_kernel_checks(kt, frames, dev, report):
 
 
 
+def atlas_pixels(proj_ops, meta, T_C_G, cfg, intr, plan, rows):
+    """The distinct atlas pixels (depth and label) that the voxels of the
+    meta rows `rows` sample inside their block's window: the pixels a
+    projective apply kernel loads."""
+    import torch
+    _, _, _, _, _, row, col = proj_ops.voxel_pixels(meta, T_C_G, cfg, intr,
+                                                    plan)
+    inwin = ((row >= 0) & (row < plan.row_window) & (col >= 0)
+             & (col < plan.col_window) & rows[:, None])
+    pixel = ((meta[:, :1] + row) * plan.atlas_width + meta[:, 1:2] + col)
+    return int(torch.unique(pixel[inwin]).numel())
+
+
+def k4_check(kernels, proj_ops, label, cfg, intr, plan, meta, fslots, T_C_G,
+             atlas):
+    """K4 (projective_sample_update) against its plain version on the tiles
+    K5 reads (slot group not the trash group): d_lab and d_cnt bit-exact,
+    d_w and d_wsdf within FLOAT_RTOL; timed. Returns the report entry."""
+    import torch
+    g = cfg.grid
+    args = (meta, fslots, T_C_G, atlas, cfg, intr, plan)
+    got = kernels.projective_sample_update(*args)
+    ref = kernels.projective_sample_update_plain(*args)
+    torch.cuda.synchronize()
+    live = torch.div(fslots, 8, rounding_mode="floor") != g.block_capacity // 8
+    err = check_outputs(f"K4 ({label})", [x[live] for x in got[:4]],
+                        [x[live] for x in ref[:4]],
+                        ("d_w", "d_wsdf", "d_cnt", "d_lab"),
+                        ("d_w", "d_wsdf"))
+    if got[4] is not None or not bool(got[0][live].any()):
+        fail(f"K4 ({label}): no update, or colour deltas outside COLOR mode")
+    K, V3 = meta.shape[0], g.vps3
+    n_live = int(live.sum())
+    real = live & (meta[:, 2] > 0)
+    n_px = atlas_pixels(proj_ops, meta, T_C_G, cfg, intr, plan, real)
+    n_upd = int((got[0][live] != 0).sum())
+    print(f"[K4 projective_sample_update, {label}] K={K} V3={V3}: live rows "
+          f"{n_live}, real rows {int(real.sum())}, updated voxels {n_upd}, "
+          f"atlas pixels read {n_px}; labels and counts bit-exact, float "
+          f"max abs err {err:g}")
+    del got, ref
+    return dict(
+        err=err, K=K, V3=V3, **kernel_times(
+            "projective_sample_update",
+            lambda: kernels.projective_sample_update(*args),
+            lambda: kernels.projective_sample_update_plain(*args)),
+        # the four delta planes of the live tiles written once, meta and
+        # slots read, and the depth and label of each atlas pixel sampled
+        bytes=16 * n_live * V3 + K * 36 + 2 * 4 * n_px,
+        ops=60 * int(real.sum()) * V3)
+
+
 PROJECTIVE_KERNELS = ("dda_job_stream", "block_meta", "projective_apply_fused")
+# Each kernel's slice and the path of that slice whose run gives its
+# "launches": the projective main path (K1-K3), the fast integrator (K5,
+# K6) and the serving output's CLI at 32^3 literal storage (K4).
+MAIN_PATH = {"dda_job_stream": "projective", "block_meta": "projective",
+             "projective_apply_fused": "projective",
+             "projective_sample_update": "cli_vps32",
+             "slot_resolve_stream": "fast", "block_rmw_add": "fast"}
 
 
 def traced_profile(model, cfg, intr, frames, dev, stages, ms, tag,
@@ -539,6 +614,327 @@ def traced_profile(model, cfg, intr, frames, dev, stages, ms, tag,
               f"{k} {v:.5f}" for k, v in dev_ms.items()))
 
 
+# sim-eval --preset eval, as the JAX package gives it on the CPU for the
+# same label map (the preset's CSV is absent, so both sides take
+# LabelColorMap.random(21)):
+#   JAX_PLATFORMS=cpu python -m kimera_semantics_tpu.server.node sim-eval \
+#       --preset eval --mesh-out ""
+SIM_EVAL_REF = {"rmse_tsdf": 0.07861868292093277,
+                "label_accuracy": 0.9325676656642123,
+                "mesh_error_mean": 0.005379501264542341}
+SIM_EVAL_RTOL = 0.02        # rmse_tsdf and mesh_error.mean, relative
+SIM_EVAL_LABEL_ATOL = 0.005  # label_accuracy, absolute
+
+
+@contextlib.contextmanager
+def stdout_to_stderr():
+    """The CLI's own JSON line goes to stderr: this script's standard
+    output carries only its own lines."""
+    with contextlib.redirect_stdout(sys.stderr):
+        yield
+
+
+def literal32_config(kt, cfg):
+    """The canonical configuration on 32^3 blocks stored literally: the
+    block capacity the CLI gives --storage-vps 32 (clamped to the int32
+    segment-key budget of 21 labels)."""
+    from kimera_semantics_tpu_torch.server import node
+    args = node.parse_args(["batch", "unused", "--preset", "demo",
+                            "--method", "projective", "--storage-vps", "32"])
+    with stdout_to_stderr(), contextlib.redirect_stderr(open(os.devnull,
+                                                             "w")):
+        c32, _ = node._build(args)
+    return dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, voxels_per_side=32,
+        block_capacity=c32.grid.block_capacity))
+
+
+def k4_wide_check(kt, kernels, proj, proj_ops, cfg, intr, frame, dev):
+    """K4 at V3 = 32768 (32^3 literal storage), on one frame's list."""
+    import torch
+    from kimera_semantics_tpu_torch.core import transforms
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.ops import mip as mip_ops
+    c32 = literal32_config(kt, cfg)
+    plan = proj.make_plan(c32, intr)
+    atlas = mip_ops.build_atlas(frame.depth, frame.labels, frame.colors,
+                                plan)
+    grid = blocks.create(c32, device=dev)
+    _, fcoords, fslots, freal = proj.allocate_from_atlas(
+        grid, atlas, frame.T_G_C, c32, intr, plan)
+    del grid
+    T_C_G = transforms.inverse(frame.T_G_C)
+    meta = kernels.block_meta(fcoords, freal, T_C_G, intr, plan,
+                              c32.grid.block_size)
+    out = k4_check(kernels, proj_ops, "32^3 literal", c32, intr, plan, meta,
+                   fslots, T_C_G, atlas)
+    torch.cuda.empty_cache()
+    return out
+
+
+def tsdf_words(vxblx, grid, cfg):
+    """The grid's TSDF section, blocks sorted by origin: (origins, dist,
+    weight, color words)."""
+    import numpy as np
+    sec = vxblx.grid_to_tsdf_section(grid, cfg)
+    order = np.lexsort(sec.block_origins.T[::-1])
+    w = sec.voxel_data[order].reshape(len(order), -1, 3)
+    return (sec.block_origins[order], w[..., 0].view(np.float32), w[..., 1],
+            w[..., 2])
+
+
+def cli_phase(kt, kernels, intr, label_map, dev, launches):
+    """`node batch --preset demo --method projective --storage-vps 32` on
+    4 + 24 frames written by save_directory_dataset: no overflow, a
+    non-empty PLY, K4 and K5 once per frame and K3 never, and a .vxblx
+    that reloads to the grid's TSDF voxels."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.io import ply, vxblx
+    from kimera_semantics_tpu_torch.io.dataset import (
+        SyntheticDataset, save_directory_dataset)
+    from kimera_semantics_tpu_torch.server import node
+    n = WARM_FRAMES + FRAMES
+    tmp = tempfile.mkdtemp(prefix="ksd_smoke_")
+    try:
+        t0 = time.time()
+        save_directory_dataset(
+            os.path.join(tmp, "frames"),
+            SyntheticDataset(num_frames=n, intr=intr, label_map=label_map,
+                             device=dev))
+        print(f"[cli] {n} frames {intr.width}x{intr.height} written in "
+              f"{time.time() - t0:.1f} s")
+        mesh_path = os.path.join(tmp, "mesh.ply")
+        map_path = os.path.join(tmp, "map.vxblx")
+        args = node.parse_args(["batch", os.path.join(tmp, "frames"),
+                                "--preset", "demo", "--method", "projective",
+                                "--storage-vps", "32", "--mesh-out",
+                                mesh_path, "--map-out", map_path])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with stdout_to_stderr():
+            srv, out = node.cmd_batch(args, streaming=False)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        launches["cli_vps32"] = counts
+        want = {k: (n if k in ("dda_job_stream", "block_meta",
+                               "projective_sample_update", "block_rmw_add")
+                    else 0) for k in counts}
+        if counts != want:
+            fail(f"cli: launches {counts}, expected {want}")
+        if out["overflow"] != 0 or out["triangles"] <= 0:
+            fail(f"cli: overflow {out['overflow']}, triangles "
+                 f"{out['triangles']}")
+        if len(ply.read_ply(mesh_path)[2]) != out["triangles"]:
+            fail("cli: the PLY does not hold the mesh")
+        cfg = srv.cfg
+        a = tsdf_words(vxblx, srv.grid, cfg)
+        b = tsdf_words(vxblx, vxblx.load_vxblx(map_path, cfg, device=dev),
+                       cfg)
+        # The reload stores wsdf = dist * weight, so its distance can
+        # round once: |dist| within 1e-6 m, weights exact, colour channels
+        # within 1.
+        col = lambda w: np.stack([(w >> s) & 0xFF for s in (24, 16, 8)])  # noqa: E731
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[2], b[2])
+                and np.abs(a[1] - b[1]).max() <= 1e-6
+                and np.abs(col(a[3]).astype(int) - col(b[3])).max() <= 1):
+            fail("cli: the .vxblx does not reload to the grid's TSDF voxels")
+        print(f"[cli] batch --preset demo --method projective --storage-vps "
+              f"32 (V3={cfg.grid.vps3}, capacity {cfg.grid.block_capacity}):"
+              f" {out['frames']} frames at {out['frames_per_s']:.2f} frames/s"
+              f" (utils/timing, frame decode included); blocks "
+              f"{out['blocks']} overflow {out['overflow']} triangles "
+              f"{out['triangles']}; launches {counts}; .vxblx reloads to "
+              f"the same {len(a[0])} blocks' TSDF voxels")
+        del srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def welded(mesh, voxel_size):
+    import numpy as np
+    q = np.round(mesh.vertices / (voxel_size / 1024.0)).astype(np.int64)
+    return (set(map(tuple, q)),
+            {tuple(sorted(map(tuple, q[t]))) for t in mesh.triangles})
+
+
+def serve_phase(kt, kernels, intr, frames, dev, launches):
+    """The stream server at the demo preset (fast, 0.05 m voxels, 32-voxel
+    blocks on 16^3 storage tiles, the CLI's capacity), meshing every 5
+    frames through the pipelined cycle; the snapshot check; the cache
+    against generate_mesh; a .ksdv round trip."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.io import serial
+    from kimera_semantics_tpu_torch.ops import mesh as mesh_ops
+    from kimera_semantics_tpu_torch.server import node
+    from kimera_semantics_tpu_torch.server.pipeline import (
+        SemanticTsdfServer, ServerConfig)
+    from kimera_semantics_tpu_torch.utils import timing
+    args = node.parse_args(["stream", "unused", "--preset", "demo"])
+    with stdout_to_stderr(), contextlib.redirect_stderr(open(os.devnull,
+                                                             "w")):
+        cfg, lmap = node._build(args)
+    tmp = tempfile.mkdtemp(prefix="ksd_serve_")
+    try:
+        srv = SemanticTsdfServer(cfg, intr, lmap, ServerConfig(
+            mesh_every_n_frames=5,
+            live_mesh_path=os.path.join(tmp, "live.ply")), device=dev)
+        for f in frames[:WARM_FRAMES]:
+            srv.insert_frame(f)
+        srv.join_mesh()
+        torch.cuda.synchronize()
+        stall0, cycles0, n_cyc0 = srv.mesh_stall_s, srv.mesh_cycles, len(
+            srv.mesh_cycle_s)
+        t_int = f"integrate/{cfg.integrator.value}"
+        int0 = timing.get(t_int)[0]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for f in frames[WARM_FRAMES:]:
+            srv.insert_frame(f)
+        srv.join_mesh()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        int_s = timing.get(t_int)[0] - int0
+        counts = dict(kernels.launches)
+        launches["serve"] = counts
+        n = len(frames) - WARM_FRAMES
+        # Per frame: K6 per job stream (band, and carve jobs when
+        # decimated), K1 per stream and once more for the projective
+        # carve's allocation, K2 + K3 for that carve, K5 once.
+        mode = cfg.tsdf.carve_mode
+        streams = 2 if mode == "decimated" else 1
+        want = dict(dda_job_stream=streams + (mode == "projective"),
+                    block_meta=int(mode == "projective"),
+                    projective_apply_fused=int(mode == "projective"),
+                    slot_resolve_stream=streams, block_rmw_add=1)
+        want = {k: want.get(k, 0) * n for k in counts}
+        if counts != want:
+            fail(f"serve: launches {counts}, expected {want}")
+        st = srv.stats()
+        cyc = srv.mesh_cycle_s[n_cyc0:]
+        if st["overflow"] != 0 or not cyc:
+            fail(f"serve: overflow {st['overflow']}, {len(cyc)} cycles")
+        tris = srv.mesh_cache.full_mesh().num_triangles
+        n_cyc = srv.mesh_cycles - cycles0
+        print(f"[serve] demo preset (fast, carve_mode {mode}, band density "
+              f"{cfg.tsdf.band_density}, V3={cfg.grid.vps3} storage of "
+              f"{cfg.grid.io_vps}^3 blocks, capacity "
+              f"{cfg.grid.block_capacity}), mesh every 5 frames: {n} frames "
+              f"in {sec:.3f} s, {n / sec:.2f} frames/s with meshing; cycles "
+              f"{n_cyc}, dispatch->collect mean "
+              f"{1e3 * sum(cyc) / len(cyc):.2f} ms (max "
+              f"{1e3 * max(cyc):.2f}); mesh_stall_s "
+              f"{srv.mesh_stall_s - stall0:.4f}; triangles {tris}; overflow "
+              f"{st['overflow']} dropped_rays {st['dropped_rays']}; launches "
+              f"{counts}")
+        # integrate/<method> ends each frame in a synchronize, so it holds
+        # the device work of the cycles enqueued before it; the rest of the
+        # loop is the cycles' dispatch on the host.
+        print(f"[serve split] integrate {1e3 * int_s / n:.3f} ms/frame "
+              f"(utils/timing, synchronized); the rest "
+              f"{1e3 * (sec - int_s) / max(n_cyc, 1):.3f} ms per cycle "
+              f"(dispatch and stalls)")
+
+        # Snapshot check: a cycle dispatched, a frame integrated at once,
+        # then collected, equals a synchronous mesh of the grid as it was.
+        snap = blocks.VoxelGrid(**{k: getattr(srv.grid, k).clone()
+                                   for k in blocks.FIELDS})
+        collect = mesh_ops.extract_mesh_cycle_async(
+            srv.grid, cfg, lmap, only_updated=True, return_blocks=True,
+            hold_grid=False)
+        srv.integrator.integrate(srv.grid, frames[0])
+        got = collect()
+        ref = mesh_ops.extract_mesh(snap, cfg, lmap, only_updated=True,
+                                    return_blocks=True)
+        del snap
+        torch.cuda.empty_cache()
+        if got is None or not (
+                np.array_equal(got[0].vertices, ref[0].vertices)
+                and np.array_equal(got[0].colors, ref[0].colors)
+                and np.array_equal(got[1], ref[1])
+                and np.array_equal(got[2], ref[2])):
+            fail("serve: the async cycle did not mesh the grid as it was at "
+                 "dispatch")
+        now = mesh_ops.extract_mesh(srv.grid, cfg, lmap, only_updated=True)
+        changed = now.num_triangles != ref[0].num_triangles or \
+            not np.array_equal(now.vertices, ref[0].vertices)
+        print(f"[serve snapshot] cycle dispatched, one frame integrated, "
+              f"then collected: {got[0].num_triangles} triangles equal to "
+              f"the grid's as at dispatch (the grid's mesh changed since: "
+              f"{changed})")
+
+        # The cache keeps each block's triangles from the update that last
+        # meshed it, as voxblox's MeshLayer and the JAX package do: a block
+        # whose +x/+y/+z neighbour changed since keeps its old triangles on
+        # that face (a seam). So the cache is held to generate_mesh after a
+        # final update_mesh over every allocated block, and the seams of
+        # the incremental updates are counted before it.
+        srv.update_mesh()
+        vs = cfg.grid.voxel_size
+        gen = srv.generate_mesh()
+        seams = len(welded(srv.mesh_cache.full_mesh(), vs)[1]
+                    ^ welded(gen, vs)[1])
+        srv.grid.updated[:int(srv.grid.n_blocks)] = True
+        srv.update_mesh()
+        full = srv.mesh_cache.full_mesh()
+        if gen.num_triangles != full.num_triangles or \
+                welded(full, vs) != welded(gen, vs):
+            fail("serve: the mesh cache differs from generate_mesh")
+        print(f"[serve cache] MeshLayerCache after a final update_mesh of "
+              f"every block: {full.num_triangles} triangles, equal to "
+              f"generate_mesh as welded vertex and triangle sets (before it, "
+              f"{seams} triangles of the two sets differed: the seams of "
+              f"blocks not re-meshed since a neighbour changed)")
+
+        path = os.path.join(tmp, "map.ksdv")
+        t0 = time.time()
+        srv.save_map(path)
+        back = serial.load_grid(path, cfg, device=dev)
+        for k in blocks.FIELDS:
+            if not torch.equal(getattr(back, k), getattr(srv.grid, k)):
+                fail(f"serve: .ksdv round trip changed {k}")
+        print(f"[serve ksdv] {os.path.getsize(path) / 2**30:.2f} GiB saved "
+              f"and loaded in {time.time() - t0:.1f} s: every channel "
+              f"exact")
+        del back, srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def sim_eval_phase():
+    """sim-eval --preset eval on the card against the JAX package's CPU
+    values (SIM_EVAL_REF)."""
+    from kimera_semantics_tpu_torch.server import node
+    args = node.parse_args(["sim-eval", "--preset", "eval", "--mesh-out",
+                            ""])
+    t0 = time.time()
+    with stdout_to_stderr():
+        srv, out = node.cmd_sim_eval(args)
+    got = {"rmse_tsdf": out["rmse_tsdf"],
+           "label_accuracy": out["label_accuracy"],
+           "mesh_error_mean": out["mesh_error"]["mean"]}
+    ref = SIM_EVAL_REF
+    ok = (abs(got["rmse_tsdf"] - ref["rmse_tsdf"])
+          <= SIM_EVAL_RTOL * ref["rmse_tsdf"]
+          and abs(got["mesh_error_mean"] - ref["mesh_error_mean"])
+          <= SIM_EVAL_RTOL * ref["mesh_error_mean"]
+          and abs(got["label_accuracy"] - ref["label_accuracy"])
+          <= SIM_EVAL_LABEL_ATOL and out["overflow"] == 0)
+    if not ok:
+        fail(f"sim-eval: {got} against the JAX package's {ref}")
+    print(f"[sim-eval] --preset eval ({out['frames']} viewpoints, "
+          f"{time.time() - t0:.1f} s): rmse_tsdf {got['rmse_tsdf']!r}, "
+          f"label_accuracy {got['label_accuracy']!r}, mesh_error mean "
+          f"{got['mesh_error_mean']!r}; the JAX package on the CPU: "
+          f"{ref}; within {SIM_EVAL_RTOL:.0%} relative and "
+          f"{SIM_EVAL_LABEL_ATOL} on label accuracy")
+    del srv
+
+
 def plain_run(kernels, model, grid, cfg, intr, frames, dev):
     """The frames through `model` with every kernel's plain version on the
     card; fails if a kernel launched."""
@@ -550,6 +946,7 @@ def plain_run(kernels, model, grid, cfg, intr, frames, dev):
     torch.cuda.synchronize()
     if any(kernels.launches.values()):
         fail("the plain reference run launched a kernel")
+
 
 def main() -> int:
     import torch
@@ -686,15 +1083,9 @@ def main() -> int:
     n_real = int(real.sum()) * g.vps3
     n_upd = int(upd[real].sum())
     n_cnt = int((cnt[real] > 0).sum())
-    # The distinct atlas pixels K3 loads (depth and label of every voxel
-    # whose sample falls inside its block's window): the mip padding and
-    # the pixels no voxel projects to are never read.
-    _, _, _, _, _, row, col = proj_ops.voxel_pixels(meta_k, T_C_G, cfg, intr,
-                                                    plan)
-    inwin = ((row >= 0) & (row < plan.row_window) & (col >= 0)
-             & (col < plan.col_window) & real[:, None])
-    pixel = ((meta_k[:, :1] + row) * plan.atlas_width + meta_k[:, 1:2] + col)
-    n_px = int(torch.unique(pixel[inwin]).numel())
+    # The distinct atlas pixels K3 loads: the mip padding and the pixels no
+    # voxel projects to are never read.
+    n_px = atlas_pixels(proj_ops, meta_k, T_C_G, cfg, intr, plan, real)
     print(f"[K3 projective_apply_fused] K={K} V3={g.vps3}: real voxels "
           f"{n_real}, updated {n_upd}, labelled {n_cnt}, atlas pixels read "
           f"{n_px} of {plan.atlas_height * plan.atlas_width}; counts and "
@@ -711,6 +1102,8 @@ def main() -> int:
         ops=60 * n_real)
     del ck, grid
     torch.cuda.empty_cache()
+    k4 = {"canonical": k4_check(kernels, proj_ops, "canonical", cfg, intr,
+                                plan, meta_k, fslots, T_C_G, atlas)}
 
     # -- 3. the main path ---------------------------------------------------
     grid = blocks.create(cfg, device=dev)
@@ -761,7 +1154,24 @@ def main() -> int:
           f"{time.time() - t0:.1f} s: same {n_blocks} block coordinates; "
           f"channels agree (counts and label planes exact, float max abs "
           f"{worst:g}); observed voxels {n_seen}, labels {labels}")
-    del grid, ref
+    del ref
+    torch.cuda.empty_cache()
+
+    # The unfused route (fused_apply=False): K4 then K5 per frame, K3
+    # never, and the grid of the fused route bit for bit.
+    ucfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, fused_apply=False))
+    ugrid, counts, ums = drive(proj, ucfg, intr, frames, WARM_FRAMES,
+                               n_frames, dev, dict(
+                                   dda_job_stream=1, block_meta=1,
+                                   projective_sample_update=1,
+                                   block_rmw_add=1))
+    launches["unfused"] = counts
+    compare_grids(ugrid, grid, cfg, CHANNELS, "unfused vs fused")
+    print(f"[unfused] {n_frames} frames: {ums:.3f} ms/frame host clock, "
+          f"{1e3 / ums:.1f} frames/s; launches {counts}; grid bit-identical "
+          f"to the fused route's, block for block")
+    del grid, ugrid
     torch.cuda.empty_cache()
 
     # -- 4. the ray integrators' kernels vs plain, at the fast path's shapes
@@ -820,19 +1230,34 @@ def main() -> int:
     traced_profile(merged, mcfg, mintr, frames[:WARM_FRAMES + MERGED_FRAMES],
                    dev, fast.STAGES, mms, "merged stages", outer="carve")
 
-    # -- 7. report ----------------------------------------------------------
+    # -- 7. the serving output: K4 at 32^3, the CLI, the stream server,
+    # sim-eval --------------------------------------------------------------
+    k4["32^3 literal"] = k4_wide_check(kt, kernels, proj, proj_ops, cfg,
+                                       intr, frames[0], dev)
+    report["projective_sample_update"] = dict(k4["canonical"], variants=k4)
+    cli_phase(kt, kernels, intr, label_map, dev, launches)
+    serve_phase(kt, kernels, intr, frames, dev, launches)
+    sim_eval_phase()
+
+    # -- 8. report ----------------------------------------------------------
     src, tpu = "kimera_semantics_tpu_torch/csrc/", \
         "kimera_semantics_tpu/ops/pallas_kernels.py:"
     sources = {"dda_job_stream": (src + "dda.cu", tpu + "142"),
                "block_meta": (src + "block_meta.cu", tpu + "345"),
                "projective_apply_fused": (src + "proj_apply.cu", tpu + "822"),
+               "projective_sample_update": (src + "proj_sample.cu",
+                                            tpu + "734"),
                "slot_resolve_stream": (src + "slot_resolve.cu", tpu + "472"),
                "block_rmw_add": (src + "block_rmw.cu", tpu + "936")}
     # bound_ms is the larger of the bytes' and the operations' time; the
     # measured launch floor rides beside it, and the least time a launch of
     # the kernel can take is the larger of bound_ms and launch_floor_ms.
-    # "launches" counts the fast path's run (this slice's main path), which
-    # launches all five; "launches_by_path" has each path's run.
+    # "launches" counts the run of the kernel's own slice's main path
+    # (MAIN_PATH), each driven with the counts set to 0 just before and
+    # read just after; "launches_by_path" has every path's run.
+    for name, path in MAIN_PATH.items():
+        if launches[path][name] <= 0:
+            fail(f"{name} was not launched on its main path ({path})")
 
     def bound_of(r):
         t_bytes = 1e3 * r["bytes"] / BANDWIDTH
@@ -856,7 +1281,8 @@ def main() -> int:
     for name, r in report.items():
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1],
-                 "launches": launches["fast"][name],
+                 "launches": launches[MAIN_PATH[name]][name],
+                 "main_path": MAIN_PATH[name],
                  "max_abs_err": r["err"], **line(name, r, ""),
                  "library_ms": None, "launch_floor_ms": floor_ms,
                  "launches_by_path": {p: c[name] for p, c in
@@ -871,6 +1297,11 @@ def main() -> int:
             entry["forms"] = {f: dict(max_abs_err=v["err"],
                                       **line(name, v, f" ({f})"))
                               for f, v in r["forms"].items()}
+        if "variants" in r:
+            entry["variants"] = {
+                f: dict(K=v["K"], V3=v["V3"], max_abs_err=v["err"],
+                        **line(name, v, f" ({f}, K={v['K']} V3={v['V3']})"))
+                for f, v in r["variants"].items()}
         table.append(entry)
     print(json.dumps({"kernels": table}))
     print(smi)
@@ -879,6 +1310,7 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}))
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

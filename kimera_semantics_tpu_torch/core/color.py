@@ -1,6 +1,7 @@
 """Semantic label <-> color maps.
 
-Counterpart: kimera_semantics_tpu/core/color.py (LabelColorMap). The maps
+Counterpart: kimera_semantics_tpu/core/color.py (LabelColorMap,
+rainbow_colormap). The maps
 are built on the host with numpy exactly as the reference builds them; the
 decode takes the host LUT path (one 2^24-entry table), and the encode
 accepts numpy arrays or tensors.
@@ -8,8 +9,11 @@ accepts numpy arrays or tensors.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
-from typing import Dict, Tuple
+import io
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +69,33 @@ class LabelColorMap:
                              label_colors=colors, num_labels=num_labels)
 
     @staticmethod
+    def from_csv(path_or_text: str,
+                 num_labels: Optional[int] = None) -> "LabelColorMap":
+        """Load a `name,red,green,blue,alpha,id` CSV (the reference's cfg/
+        label files). Later rows win on duplicate colors. num_labels
+        defaults to max(21, largest id whose color is not white + 1)."""
+        if os.path.exists(path_or_text):
+            with open(path_or_text, "r") as f:
+                text = f.read()
+        else:
+            text = path_or_text
+        label_to_rgb: Dict[int, Tuple[int, int, int]] = {}
+        rgb_to_label: Dict[Tuple[int, int, int], int] = {}
+        for row in csv.reader(io.StringIO(text)):
+            if not row or row[0].strip() == "name":
+                continue
+            if len(row) != 6:
+                raise ValueError(f"Invalid label-map CSV row: {row}")
+            r, g, b, _a, lab = (int(x) for x in row[1:6])
+            label_to_rgb[lab] = (r, g, b)
+            rgb_to_label[(r, g, b)] = lab
+        if num_labels is None:
+            reachable = [lab for lab, rgb in label_to_rgb.items()
+                         if rgb != WHITE]
+            num_labels = max(21, max(reachable, default=0) + 1)
+        return LabelColorMap.from_pairs(label_to_rgb, rgb_to_label, num_labels)
+
+    @staticmethod
     def random(num_labels: int = 21, seed: int = 0) -> "LabelColorMap":
         """255 random colors with labels 0-7 pinned to distinguishable
         colors (the reference's getRandomSemanticLabelToColorMap)."""
@@ -105,3 +136,24 @@ class LabelColorMap:
             idx = torch.clamp(labels.long(), -256, 255) % 256
             return table[idx]
         return self.label_colors[np.clip(labels, -256, 255)]
+
+
+def rainbow_colormap(values: torch.Tensor) -> torch.Tensor:
+    """voxblox `rainbowColorMap(h)`: h in [0, 1] -> RGB uint8 (..., 3), the
+    6-sector rainbow of ColorMode.SEMANTIC_PROBABILITY."""
+    h = torch.clamp(values, 0.0, 1.0) * 5.9999
+    i = torch.floor(h).to(torch.int32)
+    f = h - i
+    f = torch.where(i % 2 == 0, 1.0 - f, f)  # even sectors ramp down
+    n = 1.0 - f
+    zero, one = torch.zeros_like(n), torch.ones_like(n)
+
+    def select(vals, default):
+        out = default
+        for k in range(5, -1, -1):
+            out = torch.where(i == k, vals[k], out)
+        return out
+    r = select([one, n, zero, zero, n, one], one)
+    g = select([n, one, one, n, zero, zero], zero)
+    b = select([zero, zero, n, one, one, n], zero)
+    return (torch.stack([r, g, b], dim=-1) * 255.0).to(torch.uint8)

@@ -1,7 +1,8 @@
 """VoxelGrid: the block-hashed TSDF + semantic voxel state.
 
 Counterpart: kimera_semantics_tpu/grid/blocks.py (VoxelGrid, create,
-voxel_to_block_local, point_to_voxel, lookup_slots and the readouts). The channels keep the JAX package's layout
+voxel_to_block_local, point_to_voxel, voxel_center, lookup_slots,
+allocate_blocks and the readouts). The channels keep the JAX package's layout
 and its 8-row trash tile (`GridConfig.padded_rows` = capacity + 8 rows):
 
   wsum      (R, V3)     sum of measurement weights
@@ -97,16 +98,46 @@ def point_to_voxel(points: torch.Tensor, voxel_size_inv: float):
     return torch.floor(points * voxel_size_inv + 1e-6).to(torch.int32)
 
 
+def voxel_center(voxel_coords: torch.Tensor, voxel_size: float):
+    """Global voxel coord -> world-space voxel center (voxblox
+    getCenterPointFromGridIndex)."""
+    return (voxel_coords.to(torch.float32) + 0.5) * voxel_size
+
+
 def lookup_slots(grid: VoxelGrid, block_coords: torch.Tensor,
-                 cfg: GridConfig) -> torch.Tensor:
+                 cfg: GridConfig, rounds: int = 0):
     """Block coords (..., 3) -> slot ids; unknown/out-of-range -> capacity
-    (trash)."""
+    (trash). With `rounds` > 0 the probe takes exactly that many rounds and
+    no host sync, and returns (slots, complete): `complete` a device bool
+    that every probe ended."""
     ok = bhash.in_bounds(block_coords, cfg.world_extent_blocks)
     keys = bhash.pack_block_coords(block_coords, cfg.world_extent_blocks)
-    slots = bhash.lookup(grid.table_keys, grid.table_slots, keys.reshape(-1),
-                         cfg.table_size).reshape(keys.shape)
-    return torch.where(ok & (slots >= 0), slots,
-                       torch.full_like(slots, cfg.block_capacity))
+    args = (grid.table_keys, grid.table_slots, keys.reshape(-1),
+            cfg.table_size)
+    if rounds:
+        slots, complete = bhash.lookup_bounded(*args, rounds)
+    else:
+        slots = bhash.lookup(*args)
+    slots = slots.reshape(keys.shape)
+    slots = torch.where(ok & (slots >= 0), slots,
+                        torch.full_like(slots, cfg.block_capacity))
+    return (slots, complete) if rounds else slots
+
+
+def allocate_blocks(grid: VoxelGrid, block_coords: torch.Tensor,
+                    active: torch.Tensor, cfg: GridConfig) -> VoxelGrid:
+    """Allocate the active in-range blocks of `block_coords` (..., 3);
+    replaces the grid's hash-table fields and adds to its overflow."""
+    ok = bhash.in_bounds(block_coords, cfg.world_extent_blocks)
+    keys = bhash.pack_block_coords(block_coords, cfg.world_extent_blocks)
+    tk, ts, bc, nb, ov = bhash.insert(
+        grid.table_keys, grid.table_slots, grid.block_coords, grid.n_blocks,
+        keys.reshape(-1), (active & ok).reshape(-1), cfg.table_size,
+        cfg.block_capacity, cfg.world_extent_blocks)
+    grid.table_keys, grid.table_slots, grid.block_coords = tk, ts, bc
+    grid.n_blocks = nb
+    grid.overflow = grid.overflow + ov
+    return grid
 
 
 def tsdf_distance(grid: VoxelGrid, truncation: float) -> torch.Tensor:

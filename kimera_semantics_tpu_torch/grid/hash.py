@@ -65,10 +65,9 @@ def mix(keys: torch.Tensor) -> torch.Tensor:
     return (h & 0x7FFFFFFF).to(torch.int32)
 
 
-def lookup(table_keys: torch.Tensor, table_slots: torch.Tensor,
-           keys: torch.Tensor, table_size: int) -> torch.Tensor:
-    """Key -> slot; -1 for missing keys. A key's probe ends at its match or
-    at the first EMPTY position."""
+def _probe(table_keys, table_slots, keys, table_size: int):
+    """Generator of the probe rounds of `lookup`: yields (result, done)
+    after each round."""
     mask = table_size - 1
     idx = (mix(keys) & mask).long()
     result = torch.full_like(keys, -1)
@@ -80,9 +79,29 @@ def lookup(table_keys: torch.Tensor, table_slots: torch.Tensor,
         result = torch.where(hit, table_slots[idx], result)
         done = done | hit | miss
         idx = torch.where(done, idx, (idx + 1) & mask)
+        yield result, done
+
+
+def lookup(table_keys: torch.Tensor, table_slots: torch.Tensor,
+           keys: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Key -> slot; -1 for missing keys. A key's probe ends at its match or
+    at the first EMPTY position."""
+    for result, done in _probe(table_keys, table_slots, keys, table_size):
         if bool(done.all()):
             break
     return result
+
+
+def lookup_bounded(table_keys: torch.Tensor, table_slots: torch.Tensor,
+                   keys: torch.Tensor, table_size: int, rounds: int):
+    """`lookup` in exactly `rounds` probe rounds, with no host sync: (slots,
+    complete), `complete` a device bool that every probe ended (else the
+    unfinished keys read -1)."""
+    for i, (result, done) in enumerate(_probe(table_keys, table_slots, keys,
+                                              table_size)):
+        if i + 1 == rounds:
+            break
+    return result, done.all()
 
 
 def insert(table_keys, table_slots, block_coords, n_blocks, keys, active,

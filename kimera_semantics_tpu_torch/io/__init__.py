@@ -1,1 +1,1 @@
-"""Frame providers (kimera_semantics_tpu/io)."""
+"""Frame providers, prefetch and map/mesh I/O (kimera_semantics_tpu/io)."""

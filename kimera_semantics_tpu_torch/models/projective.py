@@ -11,10 +11,12 @@ frame:
      (K1, ops/kernels.py dda_job_stream), and a batch hash insert yields the
      frame's group-aligned touched-block list (grid/hash.py)
   3. per-block mip level and patch origin            (K2, block_meta)
-  4. per-voxel sample + update, added in place       (K3,
-     projective_apply_fused)
+  4. per-voxel sample + update, added in place: K3 (projective_apply_fused)
+     when `fused_apply` is set and vps^3 <= 8192, else K4
+     (projective_sample_update) writes delta planes that K5 (block_rmw_add,
+     onehot votes) adds, as the JAX package routes it
 
-On CUDA tensors K1-K3 are the hand-written kernels; on CPU tensors their
+On CUDA tensors K1-K5 are the hand-written kernels; on CPU tensors their
 plain versions. The JAX integrator takes the grid as a donated buffer and
 returns a new one; this one updates the grid's channel tensors IN PLACE and
 returns the same VoxelGrid object with its hash-table fields replaced.
@@ -43,7 +45,7 @@ from . import common
 
 # Largest vps^3 the fused apply takes, as in the JAX package; larger blocks
 # (vps = 32 literal storage) and fused_apply=False take the unfused
-# sample + block-add kernels, which a later slice ports.
+# sample (K4) + block-add (K5) kernels.
 FUSED_MAX_V3 = 8192
 
 # Profiler ranges around the stages of integrate_frame, named
@@ -137,24 +139,28 @@ def apply_frame(grid: VoxelGrid, atlas, T_G_C, fcoords, fslots, freal,
                 cfg: FusionConfig, intr: PinholeIntrinsics, plan,
                 region: str = "all") -> VoxelGrid:
     """Sample + update the listed blocks from one frame's atlas, in place:
-    K2 (block_meta) then K3 (projective_apply_fused)."""
+    K2 (block_meta), then K3 (projective_apply_fused) on the fused route,
+    or K4 (projective_sample_update) and K5 (block_rmw_add) otherwise."""
     g = cfg.grid
-    if not cfg.pipeline.fused_apply or g.vps3 > FUSED_MAX_V3:
-        raise NotImplementedError(
-            "the unfused projective apply (fused_apply=False, or vps^3 > "
-            f"{FUSED_MAX_V3}) needs the projective_sample_update and "
-            "block_rmw_add kernels, which are not ported yet")
     with common.stage("meta"):
         T_C_G = transforms.inverse(T_G_C)
         meta = kernels.block_meta(fcoords, freal, T_C_G, intr, plan,
                                   g.block_size)
+    lk = sem_ops.make_likelihood_cached(cfg).delta
+    with_color = cfg.semantic.color_mode == ColorMode.COLOR
+    channels = (grid.wsum, grid.wsdf, grid.sem_count, grid.sem_delta,
+                grid.wcolor)
     with common.stage("apply"):
-        kernels.projective_apply_fused(
-            grid.wsum, grid.wsdf, grid.sem_count, grid.sem_delta, grid.wcolor,
-            fslots, meta, T_C_G, atlas, cfg, intr, plan,
-            lk_delta=sem_ops.make_likelihood_cached(cfg).delta,
-            with_color=cfg.semantic.color_mode == ColorMode.COLOR,
-            region=region)
+        if cfg.pipeline.fused_apply and g.vps3 <= FUSED_MAX_V3:
+            kernels.projective_apply_fused(
+                *channels, fslots, meta, T_C_G, atlas, cfg, intr, plan,
+                lk_delta=lk, with_color=with_color, region=region)
+        else:
+            d_w, d_wsdf, d_cnt, d_lab, d_wc = kernels.projective_sample_update(
+                meta, fslots, T_C_G, atlas, cfg, intr, plan,
+                with_color=with_color, region=region)
+            kernels.block_rmw_add(*channels, fslots, d_w, d_wsdf, d_cnt,
+                                  d_lab, d_wc, lk_delta=lk)
         grid.updated[fslots[freal].long()] = True
     return grid
 

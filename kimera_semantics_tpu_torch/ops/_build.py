@@ -26,8 +26,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("dda", "block_meta", "proj_apply", "slot_resolve", "block_rmw",
-           "empty")
+SOURCES = ("dda", "block_meta", "proj_apply", "proj_sample", "slot_resolve",
+           "block_rmw", "empty")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

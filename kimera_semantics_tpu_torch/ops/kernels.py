@@ -7,6 +7,7 @@ _build.py):
   dda_job_stream          K1  csrc/dda.cu           (pallas_kernels.dda_job_stream)
   block_meta              K2  csrc/block_meta.cu    (pallas_kernels.block_meta)
   projective_apply_fused  K3  csrc/proj_apply.cu    (pallas_kernels.projective_apply_fused)
+  projective_sample_update K4 csrc/proj_sample.cu   (pallas_kernels.projective_sample_update)
   slot_resolve_stream     K6  csrc/slot_resolve.cu  (pallas_kernels.slot_resolve_stream,
                                                      cube_geometry, cube_lut_supported)
   block_rmw_add           K5  csrc/block_rmw.cu     (pallas_kernels.block_rmw_add)
@@ -31,8 +32,8 @@ from . import raycast
 from . import tsdf as tsdf_ops
 
 launches = {"dda_job_stream": 0, "block_meta": 0,
-            "projective_apply_fused": 0, "slot_resolve_stream": 0,
-            "block_rmw_add": 0}
+            "projective_apply_fused": 0, "projective_sample_update": 0,
+            "slot_resolve_stream": 0, "block_rmw_add": 0}
 
 
 def reset_launches():
@@ -261,6 +262,54 @@ ProjParams = _struct("ProjParams", [
     "f_lk_delta"])
 
 
+def _check_proj_mode(cfg: FusionConfig, with_color: bool, region: str):
+    if with_color != (cfg.semantic.color_mode == ColorMode.COLOR):
+        raise ValueError("with_color must match cfg.semantic.color_mode")
+    if region not in ("all", "carve"):
+        raise ValueError(f"unknown update region {region!r}")
+
+
+def _check_proj_inputs(slots, meta, T_C_G, atlas, plan, K, dev):
+    """Check the frame list, meta rows and atlas of K3/K4; returns T_C_G's
+    top 3 x 4 rows."""
+    _check(slots, "slots", torch.int32, (K,), dev)
+    _check(meta, "meta", torch.int32, (K, 8), dev)
+    tcg = T_C_G[:3, :4].contiguous()
+    _check(tcg, "T_C_G", torch.float32, (3, 4), dev)
+    _check(atlas, "atlas", torch.float32,
+           (4, plan.atlas_height, plan.atlas_width), dev)
+    return tcg
+
+
+def _proj_params(cfg: FusionConfig, intr, plan, K: int, L: int,
+                 with_color: bool, region: str, lk_delta: float):
+    """The ProjParams of K3 and K4 (csrc/proj_common.cuh)."""
+    g, t, sem = cfg.grid, cfg.tsdf, cfg.semantic
+    dyn = tuple(sem.dynamic_labels)
+    if len(dyn) > MAX_DYNAMIC_LABELS:
+        raise ValueError(f"at most {MAX_DYNAMIC_LABELS} dynamic labels")
+    dyn = dyn + (0,) * (MAX_DYNAMIC_LABELS - len(dyn))
+    R = g.padded_rows
+    return ProjParams(
+        K=K, V3=g.vps3, vps=g.voxels_per_side, L=L, rows_total=R,
+        trash_group=(R - 8) // 8, width=plan.width, height=plan.height,
+        row_window=plan.row_window, col_window=plan.col_window,
+        atlas_height=plan.atlas_height, atlas_width=plan.atlas_width,
+        allow_clear=int(t.allow_clear), carving=int(t.voxel_carving_enabled),
+        region_carve=int(region == "carve"),
+        use_const_weight=int(t.use_const_weight),
+        use_dropoff=int(t.use_weight_dropoff),
+        near_surface_only=int(sem.update_near_surface_only),
+        with_color=int(with_color), n_dyn=len(sem.dynamic_labels),
+        **{f"dyn{i}": d for i, d in enumerate(dyn)},
+        f_voxel_size=f32(g.voxel_size), f_fx=f32(intr.fx), f_fy=f32(intr.fy),
+        f_cx=f32(intr.cx), f_cy=f32(intr.cy),
+        f_trunc=f32(t.truncation_distance), f_min_ray=f32(t.min_ray_length_m),
+        f_max_ray=f32(t.max_ray_length_m), f_dropoff_eps=f32(g.voxel_size),
+        f_dropoff_scale=tsdf_ops.dropoff_scale(t, g.voxel_size),
+        f_half_vs=0.5 * f32(g.voxel_size), f_lk_delta=f32(lk_delta))
+
+
 def _check_channels(wsum, wsdf, sem_count, sem_delta, wcolor, dev):
     R, V3 = wsum.shape
     L = sem_delta.shape[0]
@@ -278,8 +327,7 @@ def projective_apply_fused_plain(wsum, wsdf, sem_count, sem_delta, wcolor,
     """Plain version of K3: the gather-mode sample and update terms
     (ops/projective.py sample_terms) plus an `index_add_` apply. Rows not
     marked real in `meta` carry zero deltas and are skipped."""
-    if with_color != (cfg.semantic.color_mode == ColorMode.COLOR):
-        raise ValueError("with_color must match cfg.semantic.color_mode")
+    _check_proj_mode(cfg, with_color, region)
     w, w_sdf, cnt, label, upd, gate, rgb = proj_ops.sample_terms(
         meta, T_C_G, atlas, cfg, intr, plan, region)
     real = meta[:, 2] > 0
@@ -310,45 +358,16 @@ def projective_apply_fused(wsum, wsdf, sem_count, sem_delta, wcolor, slots,
         return projective_apply_fused_plain(
             wsum, wsdf, sem_count, sem_delta, wcolor, slots, meta, T_C_G,
             atlas, cfg, intr, plan, lk_delta, with_color, region)
-    if with_color != (cfg.semantic.color_mode == ColorMode.COLOR):
-        raise ValueError("with_color must match cfg.semantic.color_mode")
-    if region not in ("all", "carve"):
-        raise ValueError(f"unknown update region {region!r}")
-    g, t, sem = cfg.grid, cfg.tsdf, cfg.semantic
+    _check_proj_mode(cfg, with_color, region)
+    g = cfg.grid
     dev = wsum.device
     R, V3, L = _check_channels(wsum, wsdf, sem_count, sem_delta, wcolor, dev)
     K = meta.shape[0]
     if K % 8 or V3 != g.vps3 or R != g.padded_rows:
         raise ValueError("frame list must be 8-row aligned and the channels "
                          "shaped by cfg.grid")
-    _check(slots, "slots", torch.int32, (K,), dev)
-    _check(meta, "meta", torch.int32, (K, 8), dev)
-    tcg = T_C_G[:3, :4].contiguous()
-    _check(tcg, "T_C_G", torch.float32, (3, 4), dev)
-    _check(atlas, "atlas", torch.float32,
-           (4, plan.atlas_height, plan.atlas_width), dev)
-    dyn = tuple(sem.dynamic_labels)
-    if len(dyn) > MAX_DYNAMIC_LABELS:
-        raise ValueError(f"at most {MAX_DYNAMIC_LABELS} dynamic labels")
-    dyn = dyn + (0,) * (MAX_DYNAMIC_LABELS - len(dyn))
-    p = ProjParams(
-        K=K, V3=V3, vps=g.voxels_per_side, L=L, rows_total=R,
-        trash_group=(R - 8) // 8, width=plan.width, height=plan.height,
-        row_window=plan.row_window, col_window=plan.col_window,
-        atlas_height=plan.atlas_height, atlas_width=plan.atlas_width,
-        allow_clear=int(t.allow_clear), carving=int(t.voxel_carving_enabled),
-        region_carve=int(region == "carve"),
-        use_const_weight=int(t.use_const_weight),
-        use_dropoff=int(t.use_weight_dropoff),
-        near_surface_only=int(sem.update_near_surface_only),
-        with_color=int(with_color), n_dyn=len(sem.dynamic_labels),
-        **{f"dyn{i}": d for i, d in enumerate(dyn)},
-        f_voxel_size=f32(g.voxel_size), f_fx=f32(intr.fx), f_fy=f32(intr.fy),
-        f_cx=f32(intr.cx), f_cy=f32(intr.cy),
-        f_trunc=f32(t.truncation_distance), f_min_ray=f32(t.min_ray_length_m),
-        f_max_ray=f32(t.max_ray_length_m), f_dropoff_eps=f32(g.voxel_size),
-        f_dropoff_scale=tsdf_ops.dropoff_scale(t, g.voxel_size),
-        f_half_vs=0.5 * f32(g.voxel_size), f_lk_delta=f32(lk_delta))
+    tcg = _check_proj_inputs(slots, meta, T_C_G, atlas, plan, K, dev)
+    p = _proj_params(cfg, intr, plan, K, L, with_color, region, lk_delta)
     if K > 0:
         fn = _build.bind("proj_apply", "ksd_proj_apply_fused",
                          (ctypes.c_void_p,) * 9 + (ProjParams, ctypes.c_void_p))
@@ -357,6 +376,66 @@ def projective_apply_fused(wsum, wsdf, sem_count, sem_delta, wcolor, slots,
                      p, _stream(dev)), "projective_apply_fused")
         launches["projective_apply_fused"] += 1
     return wsum, wsdf, sem_count, sem_delta, wcolor
+
+
+# ---------------------------------------------------------------------------
+# K4: projective sample + update terms as delta planes
+# ---------------------------------------------------------------------------
+
+def projective_sample_update_plain(meta, slots, T_C_G, atlas, cfg, intr,
+                                   plan, with_color=False, region="all"):
+    """Plain version of K4: the sample and update terms of K3's plain
+    version (ops/projective.py sample_terms) as delta planes, zero wherever
+    there is no update (every row, the trash tiles' included)."""
+    _check_proj_mode(cfg, with_color, region)
+    w, w_sdf, cnt, label, upd, gate, rgb = proj_ops.sample_terms(
+        meta, T_C_G, atlas, cfg, intr, plan, region)
+    d_lab = torch.where(upd, label, 0)
+    d_wc = None
+    if with_color:
+        wc = torch.where(upd & gate, w, 0.0)[..., None]
+        d_wc = torch.where(wc > 0.0, wc * rgb, 0.0).permute(0, 2, 1)
+        d_wc = d_wc.contiguous()
+    return w, w_sdf, cnt, d_lab, d_wc
+
+
+def projective_sample_update(meta, slots, T_C_G, atlas, cfg, intr, plan,
+                             with_color=False, region="all"):
+    """Per-voxel sample + update terms of the K blocks of `meta`, written
+    out as deltas for K5 (block_rmw_add, onehot votes) to add.
+
+    meta: (K, 8) block_meta rows; slots: the group-aligned frame list
+    (grid/hash.py insert_frame_list), which names the tiles K5 skips (slot
+    group outside the live rows); T_C_G (4, 4); atlas (4, AH, AW). Returns
+    (d_w, d_wsdf, d_cnt (K, V3) float32, d_lab (K, V3) int32 (0 where not
+    updated), d_wc (K, 3, V3) float32 in ColorMode.COLOR, else None). Rows
+    of the tiles K5 skips are left unwritten by the kernel."""
+    if _on_cpu(meta):
+        return projective_sample_update_plain(meta, slots, T_C_G, atlas, cfg,
+                                              intr, plan, with_color, region)
+    _check_proj_mode(cfg, with_color, region)
+    g = cfg.grid
+    dev = meta.device
+    K, V3 = meta.shape[0], g.vps3
+    if K % 8:
+        raise ValueError("frame list must be 8-row aligned")
+    tcg = _check_proj_inputs(slots, meta, T_C_G, atlas, plan, K, dev)
+    p = _proj_params(cfg, intr, plan, K, g.num_labels, with_color, region,
+                     0.0)
+    outs = [torch.empty((K, V3), dtype=d, device=dev)
+            for d in (torch.float32, torch.float32, torch.float32,
+                      torch.int32)]
+    d_wc = (torch.empty((K, 3, V3), dtype=torch.float32, device=dev)
+            if with_color else None)
+    if K > 0:
+        fn = _build.bind("proj_sample", "ksd_projective_sample_update",
+                         (ctypes.c_void_p,) * 9 + (ProjParams, ctypes.c_void_p))
+        _raise_on(fn(*(_ptr(x) for x in outs),
+                     _ptr(d_wc) if d_wc is not None else None,
+                     *(_ptr(x) for x in (slots, meta, tcg, atlas)), p,
+                     _stream(dev)), "projective_sample_update")
+        launches["projective_sample_update"] += 1
+    return (*outs, d_wc)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Bayesian semantic label fusion math.
 
 Counterpart: kimera_semantics_tpu/ops/semantic.py (Likelihood,
-make_likelihood, dynamic_label_mask, informative) and the likelihood cache
+make_likelihood, dynamic_label_mask, informative, normalize_probabilities)
+and the likelihood cache
 of kimera_semantics_tpu/ops/integrate.py (make_likelihood_cached).
 
 Per measured label l != 0 the accumulators take sem_count += 1 and
@@ -63,3 +64,11 @@ def dynamic_label_mask(labels: torch.Tensor,
 def informative(labels: torch.Tensor) -> torch.Tensor:
     """Labels that move the posterior (the unknown column is zeroed)."""
     return labels != UNKNOWN_LABEL
+
+
+def normalize_probabilities(logodds: torch.Tensor) -> torch.Tensor:
+    """L2-normalization of the log-odds vector (last axis), the reference's
+    normalizeProbabilities."""
+    norm = torch.linalg.vector_norm(logodds, dim=-1, keepdim=True)
+    return torch.where(norm > 0.0, logodds / torch.clamp(norm, min=1e-12),
+                       logodds)

@@ -190,7 +190,7 @@ def test_main_path_matches_plain(cuda):
         proj.integrate_frame(g, f, cfg, INTR, device=cuda)
     assert kernels.launches == dict(
         dda_job_stream=3, block_meta=3, projective_apply_fused=3,
-        slot_resolve_stream=0, block_rmw_add=0)
+        projective_sample_update=0, slot_resolve_stream=0, block_rmw_add=0)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
@@ -383,3 +383,141 @@ def test_ray_paths_match_plain(cuda, model, carve_mode):
         x, y = getattr(g, name), getattr(ref, name)
         x, y = (x[:, a], y[:, b]) if x.dim() == 3 else (x[a], y[b])
         assert torch.equal(x, y), name
+
+
+# ---------------------------------------------------------------------------
+# K4 projective_sample_update, the unfused route, and meshing on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(color=True), dict(carving=False),
+                                dict(near_surface=True)])
+@pytest.mark.parametrize("region", ["all", "carve"])
+def test_sample_update(cuda, kw, region):
+    """K4 against its plain version on the tiles K5 reads (slot group not
+    the trash group): every output bit-identical."""
+    cfg = config(**kw)
+    f, plan, atlas, fcoords, fslots, freal = frame_list(cfg, cuda)
+    T_C_G = transforms.inverse(f.T_G_C)
+    meta = kernels.block_meta(fcoords, freal, T_C_G, INTR, plan,
+                              cfg.grid.block_size)
+    color = cfg.semantic.color_mode == tcfg.ColorMode.COLOR
+    args = (meta, fslots, T_C_G, atlas, cfg, INTR, plan)
+    before = kernels.launches["projective_sample_update"]
+    got = kernels.projective_sample_update(*args, with_color=color,
+                                           region=region)
+    assert kernels.launches["projective_sample_update"] == before + 1
+    ref = kernels.projective_sample_update_plain(*args, with_color=color,
+                                                 region=region)
+    live = (torch.div(fslots, 8, rounding_mode="floor")
+            != cfg.grid.block_capacity // 8)
+    assert bool(live.any()) and not bool(live.all())
+    if region == "all":
+        assert bool(ref[0][live].any())
+    for name, a, b in zip(("d_w", "d_wsdf", "d_cnt", "d_lab", "d_wc"), got,
+                          ref):
+        if b is None:
+            assert a is None and not color, name
+            continue
+        assert torch.equal(a[live], b[live]), name
+
+
+def test_unfused_matches_fused(cuda):
+    """Three frames with fused_apply=False (K4 then K5, once per frame each,
+    K3 never) leave the grid of the fused route (K3), bit for bit and slot
+    for slot."""
+    cfg = config()
+    cu = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, fused_apply=False))
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = [ds.frame(i) for i in range(3)]
+    grids = []
+    for c in (cfg, cu):
+        g = blocks.create(c, device=cuda)
+        kernels.reset_launches()
+        for f in frames:
+            proj.integrate_frame(g, f, c, INTR, device=cuda)
+        grids.append(g)
+    assert kernels.launches["projective_sample_update"] == 3
+    assert kernels.launches["block_rmw_add"] == 3
+    assert kernels.launches["projective_apply_fused"] == 0
+    a, b = grids
+    assert int(a.n_blocks) == int(b.n_blocks) > 0
+    for name in blocks.FIELDS:
+        if name in ("table_keys", "table_slots", "block_coords"):
+            continue     # racing hash claims may differ between runs
+        if name in ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor",
+                    "updated"):
+            coords = a.block_coords[:int(a.n_blocks)]
+            sa = blocks.lookup_slots(a, coords, cfg.grid).long()
+            sb = blocks.lookup_slots(b, coords, cfg.grid).long()
+            x, y = getattr(a, name), getattr(b, name)
+            x, y = (x[:, sa], y[:, sb]) if x.dim() == 3 else (x[sa], y[sb])
+        else:
+            x, y = getattr(a, name), getattr(b, name)
+        assert torch.equal(x, y), name
+
+
+def mesh_grid(dev, n_frames=3):
+    cfg = config()
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=dev)
+    g = blocks.create(cfg, device=dev)
+    for i in range(n_frames):
+        proj.integrate_frame(g, ds.frame(i), cfg, INTR, device=dev)
+    return cfg, g, ds
+
+
+def grid_to(grid, dev):
+    return blocks.VoxelGrid(**{n: getattr(grid, n).to(dev)
+                               for n in blocks.FIELDS})
+
+
+@pytest.mark.parametrize("normals", [False, True])
+def test_mesh_on_card_matches_cpu(cuda, normals):
+    """extract_mesh on the card against the same grid meshed on the CPU:
+    triangle counts, rows and colours exact, vertices within 1e-6 m,
+    normals within 1e-5."""
+    from kimera_semantics_tpu_torch.ops import mesh
+    cfg, g, _ = mesh_grid(cuda)
+    lmap = kt.LabelColorMap.random()
+    a, rows_a, tri_a = mesh.extract_mesh(g, cfg, lmap, with_normals=normals,
+                                         return_blocks=True)
+    b, rows_b, tri_b = mesh.extract_mesh(grid_to(g, "cpu"), cfg, lmap,
+                                         with_normals=normals,
+                                         return_blocks=True)
+    assert a.num_triangles == b.num_triangles > 0
+    np.testing.assert_allclose(a.vertices, b.vertices, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(a.colors, b.colors)
+    np.testing.assert_array_equal(rows_a, rows_b)
+    np.testing.assert_array_equal(tri_a, tri_b)
+    if normals:
+        np.testing.assert_allclose(a.normals, b.normals, rtol=0, atol=1e-5)
+
+
+def test_async_mesh_reads_the_grid_at_dispatch(cuda):
+    """Dispatch a mesh cycle, integrate a frame at once (in place on the
+    grid), then collect: the mesh equals a synchronous extract_mesh of a
+    clone of the grid taken just before the dispatch."""
+    from kimera_semantics_tpu_torch.ops import mesh
+    cfg, g, ds = mesh_grid(cuda, 2)
+    lmap = kt.LabelColorMap.random()
+    snap = blocks.VoxelGrid(**{n: getattr(g, n).clone()
+                               for n in blocks.FIELDS})
+    collect = mesh.extract_mesh_cycle_async(g, cfg, lmap, only_updated=True,
+                                            return_blocks=True,
+                                            hold_grid=False)
+    g.updated.zero_()
+    proj.integrate_frame(g, ds.frame(3), cfg, INTR, device=cuda)
+    got = collect()
+    ref = mesh.extract_mesh(snap, cfg, lmap, only_updated=True,
+                            return_blocks=True)
+    assert got is not None
+    assert got[0].num_triangles == ref[0].num_triangles > 0
+    np.testing.assert_array_equal(got[0].vertices, ref[0].vertices)
+    np.testing.assert_array_equal(got[0].colors, ref[0].colors)
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[2], ref[2])
+    now = mesh.extract_mesh(g, cfg, lmap)
+    assert now.num_triangles != ref[0].num_triangles or not np.array_equal(
+        now.vertices, ref[0].vertices)

@@ -241,6 +241,51 @@ def test_apply_plain_matches_fused_pallas():
         assert bad.mean() < 5e-3, (name, bad.mean())
 
 
+@pytest.mark.parametrize("color", [False, True])
+def test_sample_update_plain_matches_pallas(color):
+    """K4's plain version vs the Pallas projective_sample_update run
+    interpreted (vps 8, K = 16: one frame's first two tiles of the
+    group-aligned list), compared on the tiles K5 reads (slot group not
+    the trash group); the Pallas kernel leaves the other tiles' outputs
+    unset. The Pallas sampler reads depth through a bf16 hi/lo split, so
+    band-edge voxels may flip: floats differ by more than 1e-3 + 1e-3 |ref|
+    on fewer than 0.5% of voxels, and labels and counts on as few."""
+    cj, ct = configs(color=color)
+    fr, plan, atlas = frame_atlas(cj, frame_index=1)
+    tplan = tmip.MipPlan(**plan.__dict__)
+    _, fcoords, fslots, freal = jax.jit(functools.partial(
+        jproj_model.allocate_from_atlas, cfg=cj, intr=INTR, plan=plan))(
+        jblocks.create(cj), atlas, fr.T_G_C)
+    K = 16
+    fcoords, fslots, freal = (np.array(a)[:K] for a in (fcoords, fslots,
+                                                           freal))
+    fslots[8:] = cj.grid.block_capacity + np.arange(8)   # a trash tile
+    T_C_G = jax.jit(jtr.inverse)(fr.T_G_C)
+    tflat = jnp.zeros((1, 128), jnp.float32).at[0, :12].set(
+        T_C_G[:3, :4].reshape(-1))
+    # K2's plain version (exact against the Pallas block_meta, whose
+    # lanes need K % 128 == 0).
+    meta = N(kernels.block_meta(T(fcoords), T(freal), T(N(T_C_G)), TINTR,
+                                tplan, ct.grid.block_size))
+    ref = pk.projective_sample_update(jnp.asarray(meta), tflat, atlas, cj,
+                                      INTR, plan, with_color=color,
+                                      interpret=True)
+    got = kernels.projective_sample_update(
+        T(meta), T(fslots), T(N(T_C_G)), T(atlas), ct, TINTR, tplan,
+        with_color=color)
+    assert (got[4] is not None) == color
+    live = slice(0, 8)
+    assert N(got[0])[live].any()
+    for name, a, b in zip(("d_w", "d_wsdf", "d_cnt", "d_lab", "d_wc"), ref,
+                          got):
+        if b is None:
+            assert not N(a)[live].any(), name
+            continue
+        a, b = N(a)[live], N(b)[live]
+        bad = np.abs(b.astype(np.float64) - a) > 1e-3 + 1e-3 * np.abs(a)
+        assert bad.mean() < 5e-3, (name, bad.mean())
+
+
 def test_patch_sampling_matches():
     """extract_patches + gather-mode sample_patches, including samples
     outside the window (they read 0)."""

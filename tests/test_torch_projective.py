@@ -1,8 +1,11 @@
 """The port's projective main path as a whole against the JAX package:
 three frames integrated by both, compared block by block; a grid carried
-across mid-sequence and compared slot for slot; the port's import hygiene
-and device rules (CPU)."""
+across mid-sequence and compared slot for slot; the unfused route (K4 + K5)
+against the JAX package's kernel route, at 32^3 literal storage, and
+against the fused route bit for bit; the port's import hygiene and device
+rules (CPU)."""
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -150,12 +153,104 @@ def test_integrate_frames_is_sequential():
         assert torch.equal(getattr(a, name), getattr(c, name)), name
 
 
-def test_unfused_apply_is_not_ported_yet():
-    _, ct = configs(fused_apply=False)
-    grid = tblocks.create(ct, device="cpu")
-    with pytest.raises(NotImplementedError, match="block_rmw_add"):
-        tproj_model.integrate_frame(grid, to_port(frames(1)[0]), ct, TINTR,
-                                    device="cpu")
+def run_jax_kernel_route(cfg, fs, intr=INTR):
+    """Frames through the JAX integrator on its kernel route (Pallas
+    interpreted)."""
+    jproj_model.FORCE_PALLAS_INTERPRET = True
+    try:
+        jproj_model.integrate_frame.clear_cache()
+        g = jblocks.create(cfg)
+        for f in fs:
+            g = jproj_model.integrate_frame(g, f, cfg, intr)
+        return g
+    finally:
+        jproj_model.FORCE_PALLAS_INTERPRET = False
+        jproj_model.integrate_frame.clear_cache()
+
+
+def by_coords(g, tg, ct):
+    """The JAX grid's allocated slots and the port's slots of the same
+    block coordinates (the block sets must agree)."""
+    nb = int(g.n_blocks)
+    assert int(tg.n_blocks) == nb > 0
+    coords = N(g.block_coords)[:nb]
+    st = N(tblocks.lookup_slots(tg, torch.tensor(coords), ct.grid))
+    assert (st < ct.grid.block_capacity).all()
+    return np.arange(nb), st
+
+
+def test_unfused_matches_jax_kernel_route():
+    """fused_apply=False: the port's K4 + K5 route against the JAX
+    package's projective_sample_update + block_rmw_add, both Pallas
+    kernels interpreted. Allocation, counters and updated flags agree
+    exactly; the Pallas sampler reads depth through a bf16 hi/lo split
+    (|err| < depth * 2^-18), so band-edge voxels may flip: channel values
+    differ by more than 1e-3 + 1e-3 |ref| on fewer than 0.5% of voxels."""
+    cj, ct = configs(fused_apply=False)
+    fs = frames(2)
+    g = run_jax_kernel_route(cj, fs)
+    tg = tblocks.create(ct, device="cpu")
+    for f in fs:
+        tg = tproj_model.integrate_frame(tg, to_port(f), ct, TINTR,
+                                         device="cpu")
+    assert int(tg.overflow) == int(g.overflow) == 0
+    sj, st = by_coords(g, tg, ct)
+    for name in CHANNELS:
+        a, b = rows(g, name, sj), rows(tg, name, st)
+        bad = np.abs(b - a) > 1e-3 + 1e-3 * np.abs(a)
+        assert bad.mean() < 5e-3, (name, bad.mean())
+    assert (rows(tg, "wsum", st) > 0).sum() > 300
+    np.testing.assert_array_equal(N(tg.updated)[st], N(g.updated)[sj])
+
+
+def test_literal_vps32_matches_jax():
+    """32^3 blocks stored literally (V3 = 32768 > the fused kernel's
+    8192) take K4 + K5 in the port; against the JAX package's XLA route
+    over two frames, by block coordinate, at the tolerances of
+    test_three_frames_match_jax."""
+    cj, ct = [dataclasses.replace(c, grid=dataclasses.replace(
+        c.grid, voxels_per_side=32)) for c in configs(0.1, 64, 64)]
+    assert ct.grid.vps3 > tproj_model.FUSED_MAX_V3
+    fs = frames(2)
+    g = jblocks.create(cj)
+    tg = tblocks.create(ct, device="cpu")
+    for f in fs:
+        g = jproj_model.integrate_frame(g, f, cj, INTR)
+        tg = tproj_model.integrate_frame(tg, to_port(f), ct, TINTR,
+                                         device="cpu")
+    assert int(tg.overflow) == int(g.overflow) == 0
+    sj, st = by_coords(g, tg, ct)
+    for name in ("wsum", "wsdf"):
+        np.testing.assert_allclose(rows(tg, name, st), rows(g, name, sj),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)
+    np.testing.assert_array_equal(rows(tg, "sem_count", st),
+                                  rows(g, "sem_count", sj))
+    np.testing.assert_allclose(rows(tg, "sem_delta", st),
+                               rows(g, "sem_delta", sj), rtol=0, atol=1e-6)
+    assert (rows(g, "wsum", sj) > 0).sum() > 500
+
+
+@pytest.mark.parametrize("color", [False, True])
+def test_fused_equals_unfused_bit_for_bit(color):
+    """The fused (K3) and unfused (K4 + K5) routes add the same float terms
+    once per voxel, so three frames leave identical grids."""
+    _, ct = configs()
+    if color:
+        ct = dataclasses.replace(ct, semantic=dataclasses.replace(
+            ct.semantic, color_mode=tcfg.ColorMode.COLOR))
+    cu = dataclasses.replace(ct, pipeline=dataclasses.replace(
+        ct.pipeline, fused_apply=False))
+    fs = [to_port(f) for f in frames(3)]
+    grids = []
+    for cfg in (ct, cu):
+        tg = tblocks.create(cfg, device="cpu")
+        for f in fs:
+            tg = tproj_model.integrate_frame(tg, f, cfg, TINTR, device="cpu")
+        grids.append(tg)
+    for name in tblocks.FIELDS:
+        assert torch.equal(getattr(grids[0], name),
+                           getattr(grids[1], name)), name
+    assert bool((grids[0].wsum > 0).any())
 
 
 def test_default_device_is_the_card():
