@@ -46,7 +46,19 @@ Phases, each of which must complete:
      generate_mesh (its seams counted, then every block re-meshed), and a
      .ksdv round trip; `sim-eval --preset eval`
      against the JAX package's CPU values;
-  8. report per-stage times, the kernel table (one JSON line), the card's
+  8. the rosbag batch slice: K7 add_f32 bit-exact against its plain
+     version and timed beside torch.add; the scatter-strategy profiling
+     tool (tools/profile_scatter.py) at its full size with --warm-kernel,
+     K7 launched exactly once and every strategy's channels equal to one
+     reference indexed add; the fast integrator with scatter_mode "direct"
+     and "sorted" against "segment" on the same 2 + 8 frames; the
+     reference's rosbag batch (`node batch <bag> --preset rosbag --esdf`
+     over 4 + 24 frames written to a .bag) with the ESDF against the TSDF
+     near the surface and against brute-force Euclidean distances, and its
+     tsdf_esdf.vxblx reloading both layers; scan-to-map ICP recovering a
+     perturbed held-out view, and the batch again with --enable-icp
+     --esdf-every 10;
+  9. report per-stage times, the kernel table (one JSON line), the card's
      name and power limit, and last the one-line JSON result.
 
 Exits non-zero, with no result line, on any failure, including when no
@@ -81,6 +93,13 @@ REPS = 50                # launches per kernel timing
 # integer outputs must be bit-exact; float outputs are held to 1e-6 relative
 # (only the order of the adds into the grid could differ, and it does not).
 FLOAT_RTOL = 1e-6
+# The plain scatter modes against "segment" ([modes]): "direct" adds every
+# update in another order (with atomics on the card), so floats are held to
+# MODE_TOL relative plus MODE_TOL of the channel's largest value; "sorted"
+# sums each frame's stream as differences of one running float32 cumsum,
+# so a voxel's sum is off by ulps of that prefix: 8 eps P, P the channel's
+# grid total (truncation times wsum's for wsdf). Counts exact in both.
+MODE_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -118,6 +137,7 @@ KERNEL_SYMBOLS = {"dda_job_stream": "dda_kernel",
                   "projective_sample_update": "proj_sample_kernel",
                   "slot_resolve_stream": "slot_resolve_kernel",
                   "block_rmw_add": "block_rmw_kernel",
+                  "add_f32": "ksd_add_f32_kernel",
                   "empty": "empty_kernel"}
 CHANNELS = ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor")
 K1_OUTPUTS = ("key", "local", "w", "wsdf", "wc", "valid", "run_key",
@@ -569,11 +589,13 @@ def k4_check(kernels, proj_ops, label, cfg, intr, plan, meta, fslots, T_C_G,
 PROJECTIVE_KERNELS = ("dda_job_stream", "block_meta", "projective_apply_fused")
 # Each kernel's slice and the path of that slice whose run gives its
 # "launches": the projective main path (K1-K3), the fast integrator (K5,
-# K6) and the serving output's CLI at 32^3 literal storage (K4).
+# K6), the serving output's CLI at 32^3 literal storage (K4) and the
+# scatter-strategy profiling tool's warm-kernel probe (K7).
 MAIN_PATH = {"dda_job_stream": "projective", "block_meta": "projective",
              "projective_apply_fused": "projective",
              "projective_sample_update": "cli_vps32",
-             "slot_resolve_stream": "fast", "block_rmw_add": "fast"}
+             "slot_resolve_stream": "fast", "block_rmw_add": "fast",
+             "add_f32": "scatter_profile"}
 
 
 def traced_profile(model, cfg, intr, frames, dev, stages, ms, tag,
@@ -935,6 +957,365 @@ def sim_eval_phase():
     del srv
 
 
+def k7_check(kernels, dev, report):
+    """K7 add_f32 at the probe's shape, (8, 128) float32, bit-exact against
+    its plain version, timed beside torch.add on the same tensors."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(7)
+    x, y = (torch.tensor(rng.standard_normal((8, 128)).astype(np.float32),
+                         device=dev) for _ in range(2))
+    got = kernels.add_f32(x, y)
+    ref = kernels.add_f32_plain(x, y)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        fail(f"K7 add_f32: kernel and plain differ at "
+             f"{int((got != ref).sum())} entries")
+    lib = device_time(lambda: torch.add(x, y), "add", REPS)
+    report["add_f32"] = dict(
+        err=0.0, **kernel_times("add_f32", lambda: kernels.add_f32(x, y),
+                                lambda: kernels.add_f32_plain(x, y)),
+        library_ms=lib if lib is not None else cuda_time(
+            lambda: torch.add(x, y), REPS),
+        # two inputs read and one output written once; one add each
+        bytes=3 * 4 * x.numel(), ops=x.numel())
+    print(f"[K7 add_f32] (8, 128) float32: bit-exact against x + y; "
+          f"torch.add {report['add_f32']['library_ms']:.5f} ms device")
+
+
+def scatter_phase(kernels, dev, launches):
+    """tools/profile_scatter at its full size with --warm-kernel and 8
+    timed calls per strategy: K7 launched exactly once, every strategy's
+    channels equal to (calls) x one reference indexed add (exact: every
+    value is 1 or 0.5)."""
+    import torch
+    from kimera_semantics_tpu_torch.tools import profile_scatter as ps
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    res = ps.run(frames=8, smoke=False, device=dev, warm_kernel=True,
+                 log=lambda line: print(f"[scatter] {line}"))
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    launches["scatter_profile"] = counts
+    if counts != {k: int(k == "add_f32") for k in counts}:
+        fail(f"scatter: launches {counts}, expected add_f32 once")
+    ref = ps.reference(res["segments"])
+    k = res["frames"] + 1
+    for name in ps.STRATEGIES:
+        for c, t in res["channels"][name].items():
+            if not torch.equal(t, k * ref[c]):
+                fail(f"scatter {name}: {c} differs from {k} x the reference "
+                     f"(max abs {max_abs_err(t, k * ref[c]):g})")
+    seg = res["segments"]
+    print(f"[scatter] cap {seg['cap']} V3 {seg['v3']} L {seg['L']} B "
+          f"{seg['B']} nseg {seg['nseg']}, {k} calls each in "
+          f"{time.time() - t0:.1f} s: every strategy's channels equal {k} x "
+          f"one indexed add of the live segments; ms per call " + ", ".join(
+              f"{n} {res['ms'][n]:.3f}" for n in ps.STRATEGIES))
+    del res, ref
+    torch.cuda.empty_cache()
+
+
+def mode_compare(grid, ref, cfg, mode, label):
+    """A plain-mode grid against the segment grid of the same frames, by
+    block coordinate: counters and block sets equal, sem_count exact,
+    floats within the mode's tolerance (see MODE_TOL). Returns the largest
+    float difference."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    g = cfg.grid
+    for name in ("n_blocks", "overflow", "dropped_rays"):
+        if int(getattr(ref, name)) != int(getattr(grid, name)):
+            fail(f"{label}: {name} {int(getattr(grid, name))}, segment "
+                 f"{int(getattr(ref, name))}")
+    nb = int(grid.n_blocks)
+    coords = grid.block_coords[:nb]
+    s_a = blocks.lookup_slots(grid, coords, g).long()
+    s_b = blocks.lookup_slots(ref, coords, g).long()
+    if bool((s_b >= g.block_capacity).any()):
+        fail(f"{label}: another block set than the segment run's")
+    worst = 0.0
+    eps = float(torch.finfo(torch.float32).eps)
+    for c in ("wsum", "wsdf", "sem_count", "sem_delta"):
+        a, b = getattr(grid, c), getattr(ref, c)
+        a, b = (a[:, s_a], b[:, s_b]) if a.dim() == 3 else (a[s_a], b[s_b])
+        if c == "sem_count":
+            if not torch.equal(a, b):
+                fail(f"{label} sem_count: differs from the segment run")
+            continue
+        d = (a.double() - b.double()).abs()
+        if mode == "direct":
+            tol = MODE_TOL * (b.double().abs() + float(b.abs().max()))
+        elif c == "wsdf":
+            tol = 8 * eps * cfg.tsdf.truncation_distance * float(
+                ref.wsum[s_b].double().sum())
+        else:
+            tol = 8 * eps * float(b.double().abs().sum())
+        if bool((d > tol).any()):
+            fail(f"{label} {c}: max abs difference {float(d.max()):g} "
+                 f"against the segment run, over its tolerance")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def modes_phase(kt, kernels, frames, dev, launches):
+    """The fast integrator at bench.py's fast settings over 2 + 8 frames
+    with scatter_mode "direct" and "sorted", each grid against the
+    "segment" grid of the same frames."""
+    import torch
+    from kimera_semantics_tpu_torch.models import fast
+    fcfg, fintr = ray_config(kt, "fast")
+    seg_grid, _, seg_ms = drive(fast, fcfg, fintr, frames, MERGED_WARM,
+                                MERGED_FRAMES, dev, dict(
+                                    dda_job_stream=2, block_meta=1,
+                                    projective_apply_fused=1,
+                                    slot_resolve_stream=1, block_rmw_add=1))
+    line = [f"segment {1e3 / seg_ms:.1f}"]
+    for mode in ("direct", "sorted"):
+        cfg = dataclasses.replace(fcfg, pipeline=dataclasses.replace(
+            fcfg.pipeline, scatter_mode=mode))
+        # The plain tail: hash-resolved slots and indexed adds, no K5 or
+        # K6; the projective carve keeps K1, K2 and K3.
+        grid, counts, ms = drive(fast, cfg, fintr, frames, MERGED_WARM,
+                                 MERGED_FRAMES, dev, dict(
+                                     dda_job_stream=2, block_meta=1,
+                                     projective_apply_fused=1))
+        launches[f"fast_{mode}"] = counts
+        worst = mode_compare(grid, seg_grid, fcfg, mode, f"modes {mode}")
+        print(f"[modes] fast, scatter_mode {mode}: {MERGED_FRAMES} frames "
+              f"{ms:.3f} ms/frame, {1e3 / ms:.1f} frames/s; same "
+              f"{int(grid.n_blocks)} blocks and counters as segment, "
+              f"sem_count exact, float max abs difference {worst:g}; "
+              f"launches {counts}")
+        line.append(f"{mode} {1e3 / ms:.1f}")
+        del grid
+        torch.cuda.empty_cache()
+    print("[modes] frames/s: " + ", ".join(line))
+    del seg_grid
+    torch.cuda.empty_cache()
+
+
+ROSBAG_TOPICS = ("/tesse/depth_cam/mono/image_raw",
+                 "/tesse/seg_cam/rgb/image_raw",
+                 "/tesse/depth_cam/camera_info")
+
+
+def esdf_brute_force(res, grid, cfg, n_samples, max_dist, dev):
+    """The ESDF against the exact nearest-seed Euclidean distance at
+    `n_samples` seeded observed voxels outside the band (the oracle of
+    tests/test_esdf_blocked.py: under one voxel of error); near-surface
+    voxels must carry the TSDF itself. Returns (max error, seeds)."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    nb = res.block_coords.shape[0]
+    vps, v = res.vps, cfg.grid.voxel_size
+    trunc = cfg.tsdf.truncation_distance
+    tsdf = blocks.tsdf_distance(grid, trunc)[:nb]
+    observed = grid.wsum[:nb] > 1e-6
+    near = observed & (tsdf.abs() < trunc * 0.99)
+    dist = torch.as_tensor(res.distance, device=dev)
+    if not torch.equal(dist[near], tsdf[near]):
+        fail("bag: the ESDF differs from the TSDF at near-surface voxels")
+    li = torch.arange(vps, dtype=torch.float32, device=dev) + 0.5
+    local = torch.stack(torch.meshgrid(li, li, li, indexing="ij"),
+                        dim=-1).reshape(-1, 3)
+    bc = torch.as_tensor(res.block_coords, dtype=torch.float32, device=dev)
+    centers = (bc[:, None, :] * vps + local[None]) * v
+    seeds, resid = centers[near], tsdf[near].abs()
+    cand = torch.nonzero(observed & ~near).cpu().numpy()
+    rng = np.random.RandomState(0)
+    sel = cand[rng.choice(len(cand), size=min(n_samples, len(cand)),
+                          replace=False)]
+    sel_t = torch.as_tensor(sel, device=dev)
+    pts = centers[sel_t[:, 0], sel_t[:, 1]]
+    brute = torch.cat([
+        (torch.linalg.vector_norm(pts[i:i + 16, None, :] - seeds[None],
+                                  dim=-1) + resid[None]).min(dim=1)[0]
+        for i in range(0, len(pts), 16)])
+    brute = brute.clamp(0.0, max_dist)
+    e = float((dist[sel_t[:, 0], sel_t[:, 1]].abs() - brute).abs().max())
+    if e >= v:
+        fail(f"bag: ESDF error {e:g} m against brute force, over a voxel")
+    return e, int(seeds.shape[0])
+
+
+def bag_icp_phase(kt, kernels, intr, dev, launches):
+    """The reference's rosbag batch at full width: 4 + 24 frames of the
+    eval world written to a .bag on the rosbag preset's topics, then
+    `node batch <bag> --preset rosbag --esdf` into tsdf_esdf.vxblx and a
+    PLY; then ICP on its grid, and the batch again with --enable-icp
+    --esdf-every 10."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.core import camera as cam
+    from kimera_semantics_tpu_torch.io import rosbag, vxblx
+    from kimera_semantics_tpu_torch.io.dataset import SyntheticDataset
+    from kimera_semantics_tpu_torch.ops import icp as icp_ops
+    from kimera_semantics_tpu_torch.server import node
+    from kimera_semantics_tpu_torch.utils import timing
+    n = WARM_FRAMES + FRAMES
+    lmap = kt.LabelColorMap.random(21)
+    tmp = tempfile.mkdtemp(prefix="ksd_bag_")
+    try:
+        bag = os.path.join(tmp, "scene.bag")
+        t0 = time.time()
+        rosbag.write_dataset_bag(
+            bag, SyntheticDataset(num_frames=n, intr=intr, label_map=lmap,
+                                  device=dev),
+            depth_topic=ROSBAG_TOPICS[0], semantic_topic=ROSBAG_TOPICS[1],
+            cam_info_topic=ROSBAG_TOPICS[2])
+        print(f"[bag] {n} frames {intr.width}x{intr.height} written to a "
+              f".bag of {os.path.getsize(bag) / 2**20:.1f} MiB in "
+              f"{time.time() - t0:.1f} s (16UC1 depth, rgb8 semantics, "
+              f"CameraInfo, TF)")
+        map_path = os.path.join(tmp, "tsdf_esdf.vxblx")
+        mesh_path = os.path.join(tmp, "mesh.ply")
+        args = node.parse_args(["batch", bag, "--preset", "rosbag", "--esdf",
+                                "--map-out", map_path, "--mesh-out",
+                                mesh_path])
+        esdf0 = timing.get("esdf/batch")[0]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with stdout_to_stderr():
+            srv, out = node.cmd_batch(args, streaming=False)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        launches["bag"] = counts
+        cfg, res = srv.cfg, srv.esdf
+        esdf_s = timing.get("esdf/batch")[0] - esdf0
+        # Per frame (carve_mode "decimated", the preset's): K1 and K6 for
+        # the band and the carve jobs, K5 once.
+        want = {k: n * dict(dda_job_stream=2, slot_resolve_stream=2,
+                            block_rmw_add=1).get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"bag: launches {counts}, expected {want}")
+        if out["overflow"] != 0 or out["triangles"] <= 0 or \
+                out["frames"] != n:
+            fail(f"bag: {out}")
+        err, n_seeds = esdf_brute_force(res, srv.grid, cfg, 300,
+                                        args.esdf_max_dist, dev)
+        a = tsdf_words(vxblx, srv.grid, cfg)
+        b = tsdf_words(vxblx, vxblx.load_vxblx(map_path, cfg, device=dev),
+                       cfg)
+        col = lambda w: np.stack([(w >> s) & 0xFF for s in (24, 16, 8)])  # noqa: E731
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[2], b[2])
+                and np.abs(a[1] - b[1]).max() <= 1e-6
+                and np.abs(col(a[3]).astype(int) - col(b[3])).max() <= 1):
+            fail("bag: the .vxblx does not reload to the grid's TSDF voxels")
+        secs = vxblx.read_sections(map_path)
+        ref = vxblx.esdf_to_section(res, cfg)
+        if [s.type for s in secs] != ["tsdf", "esdf"] or not (
+                np.array_equal(secs[1].block_origins, ref.block_origins)
+                and np.array_equal(secs[1].voxel_data.reshape(
+                    ref.voxel_data.shape), ref.voxel_data)):
+            fail("bag: the .vxblx ESDF layer does not reload to the "
+                 "ESDF's words")
+        print(f"[bag] batch <bag> --preset rosbag --esdf (fast, carve_mode "
+              f"{cfg.tsdf.carve_mode}, V3={cfg.grid.vps3} storage of "
+              f"{cfg.grid.io_vps}^3 blocks, capacity "
+              f"{cfg.grid.block_capacity}): {out['frames']} frames at "
+              f"{out['frames_per_s']:.2f} frames/s (utils/timing, bag decode "
+              f"included); blocks {out['blocks']} overflow "
+              f"{out['overflow']} dropped_rays {out['dropped_rays']} "
+              f"triangles {out['triangles']}; launches {counts}")
+        print(f"[bag esdf] {esdf_s:.3f} s (max_dist "
+              f"{args.esdf_max_dist} m, {res.block_coords.shape[0]} blocks "
+              f"of {res.vps}^3, {res.distance.nbytes + res.observed.nbytes}"
+              f" B out, {int(res.observed.sum())} observed voxels); equal "
+              f"to the TSDF at near-surface voxels; max error {err:.5f} m "
+              f"against brute force over {n_seeds} seeds at 300 sampled "
+              f"voxels (bound: one voxel); tsdf_esdf.vxblx "
+              f"{os.path.getsize(map_path) / 2**20:.1f} MiB reloads to the "
+              f"grid's TSDF voxels and the ESDF's words "
+              f"({len(secs[1].block_origins)} ESDF blocks of "
+              f"{secs[1].voxels_per_side}^3)")
+
+        # ICP: a held-out view (between the bag's first two) against the
+        # grid, its pose perturbed in the camera frame by 3 cm and 1
+        # degree, as tests/test_icp.py perturbs it.
+        grid, sc = srv.grid, srv.server_cfg
+        ds = SyntheticDataset(num_frames=2 * n, intr=intr, label_map=lmap,
+                              device=dev)
+        f = ds.frame(1)
+        T_true = f.T_G_C.float()
+        ang = np.deg2rad(1.0) / np.sqrt(3.0)
+        xi = torch.tensor([ang, -ang, ang, 0.02, -0.015, 0.015],
+                          dtype=torch.float32, device=dev)
+        T_pert = T_true @ icp_ops._exp_se3(xi)
+        pts_C, valid = cam.backproject(f.depth, intr)
+        stride = max(1, sc.icp_subsample)
+        pts_C, valid = pts_C[::stride], valid[::stride]
+        kw = dict(iters=sc.icp_iters, damping=sc.icp_damping,
+                  refine_roll_pitch=sc.icp_refine_roll_pitch,
+                  min_match_ratio=sc.icp_min_match_ratio)
+        _, rms0, _ = icp_ops.align_to_map(grid, cfg, pts_C, valid, T_pert,
+                                          **dict(kw, iters=1))
+        T, rms, ratio = icp_ops.align_to_map(grid, cfg, pts_C, valid,
+                                             T_pert, **kw)
+        torch.cuda.synchronize()
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            icp_ops.align_to_map(grid, cfg, pts_C, valid, T_pert, **kw)
+        torch.cuda.synchronize()
+        icp_ms = 1e3 * (time.perf_counter() - t0) / reps
+
+        def pose_err(A):
+            dt = float(torch.linalg.vector_norm(A[:3, 3] - T_true[:3, 3]))
+            c = float(((A[:3, :3] @ T_true[:3, :3].T).trace() - 1) / 2)
+            return dt, float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+        pre, post = pose_err(T_pert), pose_err(T)
+        vs = cfg.grid.voxel_size
+        # As tests/test_icp.py holds it: the residual at least halved, the
+        # rotation error reduced, and the position within a voxel (one
+        # view leaves near-null directions of the pose, so the position
+        # error need not shrink).
+        if not (post[0] < vs and post[1] < pre[1]
+                and float(rms) < 0.5 * float(rms0)):
+            fail(f"icp: pose error {pre} -> {post} (m, deg), rms "
+                 f"{float(rms0):g} -> {float(rms):g}, match ratio "
+                 f"{float(ratio):g}")
+        print(f"[icp] held-out view, {int(valid.sum())} points (every "
+              f"{stride}th pixel), the preset's defaults ({sc.icp_iters} "
+              f"iterations): pose error {pre[0] * 100:.2f} cm {pre[1]:.3f} "
+              f"deg -> {post[0] * 100:.2f} cm {post[1]:.3f} deg (within "
+              f"a voxel, {vs * 100:.0f} cm); rms {float(rms0):.5f} -> "
+              f"{float(rms):.5f} m; match ratio {float(ratio):.4f}; "
+              f"{icp_ms:.3f} ms per alignment")
+        del srv, grid
+        torch.cuda.empty_cache()
+
+        args = node.parse_args(["batch", bag, "--preset", "rosbag",
+                                "--enable-icp", "--esdf-every", "10",
+                                "--mesh-out", ""])
+        icp0, up0 = timing.get("icp/align"), timing.get("esdf/update")
+        with stdout_to_stderr():
+            srv, out2 = node.cmd_batch(args, streaming=False)
+        icp1, up1 = timing.get("icp/align"), timing.get("esdf/update")
+        n_esdf = up1[1] - up0[1]
+        if out2["overflow"] != 0 or out2["frames"] != n or \
+                n_esdf != n // 10 or icp1[1] - icp0[1] != n - 1:
+            fail(f"bag --enable-icp: {out2}, {n_esdf} ESDF refreshes, "
+                 f"{icp1[1] - icp0[1]} alignments")
+        print(f"[icp batch] batch <bag> --preset rosbag --enable-icp "
+              f"--esdf-every 10: {out2['frames']} frames at "
+              f"{out2['frames_per_s']:.2f} frames/s (without ICP "
+              f"{out['frames_per_s']:.2f}); {icp1[1] - icp0[1]} alignments, "
+              f"{1e3 * (icp1[0] - icp0[0]) / max(icp1[1] - icp0[1], 1):.3f}"
+              f" ms each; last match ratio "
+              f"{float(srv.last_icp_match_ratio):.4f}; {n_esdf} ESDF "
+              f"refreshes, {1e3 * (up1[0] - up0[0]) / max(n_esdf, 1):.1f} ms "
+              f"each; blocks "
+              f"{out2['blocks']} overflow {out2['overflow']} triangles "
+              f"{out2['triangles']}")
+        del srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def plain_run(kernels, model, grid, cfg, intr, frames, dev):
     """The frames through `model` with every kernel's plain version on the
     card; fails if a kernel launched."""
@@ -1239,7 +1620,14 @@ def main() -> int:
     serve_phase(kt, kernels, intr, frames, dev, launches)
     sim_eval_phase()
 
-    # -- 8. report ----------------------------------------------------------
+    # -- 8. the rosbag batch slice: K7 and the scatter tool, the plain
+    # scatter modes, the bag batch with the ESDF, ICP ----------------------
+    k7_check(kernels, dev, report)
+    scatter_phase(kernels, dev, launches)
+    modes_phase(kt, kernels, frames, dev, launches)
+    bag_icp_phase(kt, kernels, intr, dev, launches)
+
+    # -- 9. report ----------------------------------------------------------
     src, tpu = "kimera_semantics_tpu_torch/csrc/", \
         "kimera_semantics_tpu/ops/pallas_kernels.py:"
     sources = {"dda_job_stream": (src + "dda.cu", tpu + "142"),
@@ -1248,7 +1636,9 @@ def main() -> int:
                "projective_sample_update": (src + "proj_sample.cu",
                                             tpu + "734"),
                "slot_resolve_stream": (src + "slot_resolve.cu", tpu + "472"),
-               "block_rmw_add": (src + "block_rmw.cu", tpu + "936")}
+               "block_rmw_add": (src + "block_rmw.cu", tpu + "936"),
+               "add_f32": (src + "add.cu",
+                           "scripts/profile_scatter_r4.py:106")}
     # bound_ms is the larger of the bytes' and the operations' time; the
     # measured launch floor rides beside it, and the least time a launch of
     # the kernel can take is the larger of bound_ms and launch_floor_ms.
@@ -1284,7 +1674,8 @@ def main() -> int:
                  "launches": launches[MAIN_PATH[name]][name],
                  "main_path": MAIN_PATH[name],
                  "max_abs_err": r["err"], **line(name, r, ""),
-                 "library_ms": None, "launch_floor_ms": floor_ms,
+                 "library_ms": r.get("library_ms"),
+                 "launch_floor_ms": floor_ms,
                  "launches_by_path": {p: c[name] for p, c in
                                       launches.items()}}
         if "voxel" in r:

@@ -1,4 +1,4 @@
-"""voxblox `.vxblx` wire-format compatibility for the TSDF layer.
+"""voxblox `.vxblx` wire-format compatibility: the TSDF and ESDF layers.
 
 Counterpart: kimera_semantics_tpu/io/vxblx.py. The reference checkpoints
 maps with `vxb::io::SaveLayer`: a protobuf stream file of a varint message
@@ -8,14 +8,18 @@ voxel_data` words in x-fastest linear voxel order:
 
   TSDF voxel  -> 3 words: f32 bits of distance, f32 bits of weight,
                  packed color (r<<24 | g<<16 | b<<8 | a)
+  ESDF voxel  -> 2 words: f32 bits of distance, flag bits (bit0 = observed)
 
-A multi-layer file is a concatenation of sections. No protobuf runtime is
-used: the proto2 wire format is hand-encoded with vectorized numpy. The
+`EsdfServer::saveMap` appends the ESDF layer after the TSDF layer in the
+same file (the reference's `tsdf_esdf.vxblx`); a multi-layer file is a
+concatenation of sections, each with its own message count. No protobuf
+runtime is used: the proto2 wire format is hand-encoded with vectorized numpy. The
 writer emits unpacked `repeated uint32` (as voxblox does); the reader also
 accepts the packed encoding. Storage tiles finer than the user's block
 side (GridConfig.io_voxels_per_side) regroup into whole blocks on save and
-split on load. The ESDF layer is not ported yet (slice D): saving one
-raises, and loading reads the TSDF section only.
+split on load (the ESDF, computed on storage tiles, regroups the same
+way). `load_vxblx` reads the TSDF layer; `read_sections` reads every
+layer.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from ..grid import blocks as gblocks
 from ..grid.blocks import VoxelGrid
 
 LAYER_TYPE_TSDF = "tsdf"
+LAYER_TYPE_ESDF = "esdf"
 TSDF_WORDS_PER_VOXEL = 3
+ESDF_WORDS_PER_VOXEL = 2
 
 _TAG_VOXEL_DATA = (7 << 3) | 0   # field 7, varint
 _TAG_VOXEL_DATA_PACKED = (7 << 3) | 2  # field 7, length-delimited
@@ -415,17 +421,70 @@ def tsdf_section_to_grid(sec: LayerSection, cfg: FusionConfig,
 
 
 # ---------------------------------------------------------------------------
+# ESDF section (EsdfResult is block-aligned by construction: origin_voxel and
+# dims are multiples of vps, ops/esdf.py compute_esdf).
+# ---------------------------------------------------------------------------
+
+def esdf_to_section(res, cfg: FusionConfig) -> LayerSection:
+    g = cfg.grid
+    vps = g.voxels_per_side
+
+    def finish(block_idx, dist_b, obs_b):
+        # (n, vps^3) x-fastest payloads -> section at the IO block side.
+        w0 = np.ascontiguousarray(dist_b.astype(np.float32)).view(np.uint32)
+        w1 = obs_b.astype(np.uint32)  # bit0 = observed
+        words = np.stack([w0, w1], axis=-1)               # (n, vps^3, 2)
+        io_vps = g.io_vps
+        if io_vps != vps:
+            block_idx, words = _regroup_blocks(
+                np.asarray(block_idx, np.int64), words, vps, io_vps,
+                np.zeros((2,), np.uint32))
+        origins = (np.asarray(block_idx, np.float64)
+                   * (g.voxel_size * io_vps))
+        return LayerSection(LAYER_TYPE_ESDF, g.voxel_size, io_vps, origins,
+                            words.reshape(len(block_idx), -1))
+
+    if hasattr(res, "block_coords"):
+        # Block-sparse result (ops/esdf.py EsdfBlocked) — already per block;
+        # convert local linear order ((x*vps)+y)*vps+z -> voxblox x-fastest.
+        nb = res.block_coords.shape[0]
+        to_vxb = lambda a: (a.reshape(nb, vps, vps, vps)
+                            .transpose(0, 3, 2, 1).reshape(nb, vps ** 3))
+        dist_b = to_vxb(res.distance.astype(np.float32))
+        obs_b = to_vxb(res.observed)
+        keep = obs_b.any(axis=1)
+        return finish(res.block_coords[keep], dist_b[keep], obs_b[keep])
+    dims = res.distance.shape
+    if any(d % vps for d in dims):
+        raise ValueError(f"EsdfResult dims {dims} not block-aligned")
+    nbx, nby, nbz = (d // vps for d in dims)
+    # (X,Y,Z) -> (block, x-fastest voxel): voxblox linear order within blocks.
+    to_blocks = lambda a: (a.reshape(nbx, vps, nby, vps, nbz, vps)
+                           .transpose(0, 2, 4, 5, 3, 1)
+                           .reshape(nbx * nby * nbz, vps ** 3))
+    dist = to_blocks(res.distance.astype(np.float32))
+    obs = to_blocks(res.observed)
+    keep = obs.any(axis=1)
+    bidx = np.stack(np.meshgrid(np.arange(nbx), np.arange(nby),
+                                np.arange(nbz), indexing="ij"),
+                    axis=-1).reshape(-1, 3)[keep]
+    return finish(bidx + res.origin_voxel[None] // vps, dist[keep],
+                  obs[keep])
+
+
+# ---------------------------------------------------------------------------
 # Top-level save/load (the saveMap/loadMap interop surface)
 # ---------------------------------------------------------------------------
 
 def save_vxblx(path: str, grid: VoxelGrid, cfg: FusionConfig,
                esdf=None) -> None:
-    """Write `<path>` with the TSDF layer, as the reference's saveMap
-    does. The ESDF layer is not ported yet (slice D)."""
+    """Write `<path>` as the reference's `tsdf_esdf.vxblx` does: the TSDF
+    layer, then, given an ESDF (ops/esdf.py), the ESDF layer appended as a
+    second section (kimera_semantics_rosbag.cpp:148-167)."""
+    sections = [grid_to_tsdf_section(grid, cfg)]
     if esdf is not None:
-        raise NotImplementedError(
-            "the ESDF layer of .vxblx is not ported yet (slice D)")
-    write_sections(path, [grid_to_tsdf_section(grid, cfg)])
+        sections.append(esdf_to_section(esdf, cfg))
+    write_sections(path, sections)
 
 
 def load_vxblx(path: str, cfg: FusionConfig, device="cuda") -> VoxelGrid:

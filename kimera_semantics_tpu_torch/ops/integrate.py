@@ -18,15 +18,20 @@ unique (voxel, label) segments and added into the grid once:
               block_rmw_add into the grid (the staged apply); or, with
               PipelineConfig.staged_apply False, direct indexed adds
 
+scatter_mode "direct" and "sorted" (the reference's debug baselines) skip
+steps 3-5's segment reduce: slots resolve by hash lookups and every update
+is added into the grid as it is (_plain_scatter_apply); "segment" takes
+that plain tail too when the (voxel, label) key does not fit int32, as the
+reference does.
+
 The port always takes the reference's kernel route: K1's plain version
 emits block runs too, so the reference's XLA scan form of the DDA is not
 needed, and `PipelineConfig.use_pallas` has no effect here. The grid's
 channel tensors are updated IN PLACE and the same VoxelGrid object is
 returned with its hash-table and counter fields replaced.
 
-Not ported yet (they raise NotImplementedError): scatter_mode "direct" and
-"sorted", spatial sharding (shard_id/num_shards) and multi-frame
-anti-grazing (ag_frames > 1).
+Not ported yet (they raise NotImplementedError): spatial sharding
+(shard_id/num_shards) and multi-frame anti-grazing (ag_frames > 1).
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ from ..models.common import stage
 from . import kernels
 from . import semantic
 from .carve import JobBatch, full_jobs
-from .reduce import TRASH_KEY, add_sorted_runs, segment_compact_reduce
+from .reduce import (TRASH_KEY, SortedUpdates, add_sorted_runs, drop_add_,
+                     segment_compact_reduce)
 
 # Profiler ranges of the ray path, in order (models/common.py stage).
 STAGES = ("expand", "alloc", "cube", "resolve", "reduce", "stage", "apply")
@@ -123,23 +129,16 @@ def integrate_jobs(
     """
     if shard_id is not None or num_shards != 1:
         raise NotImplementedError("spatial sharding (shard_id/num_shards) "
-                                  "is not ported yet (slice D)")
+                                  "is not ported yet (slice E)")
     if ag_frames != 1:
         raise NotImplementedError("multi-frame anti-grazing (ag_frames > 1) "
-                                  "is not ported yet (slice D)")
-    if cfg.pipeline.scatter_mode != "segment":
-        raise NotImplementedError(
-            f"scatter_mode {cfg.pipeline.scatter_mode!r} is not ported yet "
-            "(slice D); use 'segment'")
+                                  "is not ported yet (slice E)")
     g = cfg.grid
     vps, v3, cap, L = g.voxels_per_side, g.vps3, g.block_capacity, \
         g.num_labels
     lab_shift = max(1, (L - 1).bit_length())
     n_flat = (cap + 1) * v3
-    if (n_flat << lab_shift) >= 2 ** 31:
-        raise NotImplementedError(
-            "the (voxel, label) key does not fit int32 at this capacity; the "
-            "'direct' scatter mode it needs is not ported yet (slice D)")
+    use_segment = segment_key_fits(cfg)
 
     n_frames = (cube_origin.shape[0]
                 if cube_origin is not None and cube_origin.dim() == 2 else 1)
@@ -148,7 +147,8 @@ def integrate_jobs(
 
     with stage("expand"):
         streams = [expand_jobs(cfg, jobs, S) for jobs, S in batches]
-    use_cube = (cube_origin is not None and ag_dest_voxels is None
+    use_cube = (use_segment and cube_origin is not None
+                and ag_dest_voxels is None
                 and kernels.cube_lut_supported(cfg)
                 and all(st.local.shape[1] % n_frames == 0 for st in streams))
 
@@ -215,9 +215,28 @@ def integrate_jobs(
                 _mask_stream(st)
                 st.key = torch.where(st.step_valid, st.key,
                                      cap * v3 + st.local)
+    if not use_segment:
+        with stage("apply"):
+            return _plain_scatter_apply(grid, cfg, streams,
+                                        torch.cat(touched), lk,
+                                        sem_points=sem_points)
     return _segment_scatter_apply(
         grid, cfg, streams, torch.cat(touched), lab_shift, lk,
         sem_points=sem_points, staged_ok=staged_ok, staged_rows=staged_rows)
+
+
+def segment_key_fits(cfg: FusionConfig) -> bool:
+    """Whether integrate_jobs takes the segment reduce: scatter_mode
+    "segment" and a combined (voxel, label) key
+    ((capacity + 1) * vps^3) << ceil(log2 L) that fits int32. Otherwise the
+    plain tail (_plain_scatter_apply) applies the updates, as in the
+    reference. Decided from the configuration alone, before any grid or
+    stream exists."""
+    g = cfg.grid
+    lab_shift = max(1, (g.num_labels - 1).bit_length())
+    n_flat = (g.block_capacity + 1) * g.vps3
+    return (cfg.pipeline.scatter_mode == "segment"
+            and (n_flat << lab_shift) < 2 ** 31)
 
 
 def frame_cube(grid: VoxelGrid, cfg: FusionConfig, origin: torch.Tensor):
@@ -253,6 +272,102 @@ def integrate_ray_batch(grid: VoxelGrid, cfg: FusionConfig, origin,
     jobs = full_jobs(origin, points_G, weights, labels, colors, is_clearing,
                      ray_valid, cfg)
     return integrate_jobs(grid, cfg, [(jobs, cfg.resolved_max_steps())], **kw)
+
+
+def _plain_scatter_apply(grid, cfg, streams, touched_slots, lk,
+                         sem_points=None):
+    """scatter_mode "direct" and "sorted" (and "segment" where its key
+    does not fit int32): every update of the streams added into the grid
+    as it is, by indexed adds ("direct") or through SortedUpdates, one sort
+    and cumsum-difference segment sums per key set ("sorted").
+    Mathematically the same grid as the segment path; "direct" on CUDA adds
+    duplicates with float atomics, so two card runs may differ in the last
+    bits."""
+    g, L = cfg.grid, cfg.grid.num_labels
+    row_flat = g.padded_rows * g.vps3
+    flat = lambda t: t.view(-1)  # noqa: E731
+
+    kf = torch.cat([st.key.reshape(-1) for st in streams])
+    wf = torch.cat([st.w.reshape(-1) for st in streams])
+    wsdff = torch.cat([st.w_sdf.reshape(-1) for st in streams])
+
+    sorted_mode = cfg.pipeline.scatter_mode == "sorted"
+    if sorted_mode:
+        su = SortedUpdates.build(kf, trash_key=-1)
+        scat = su.apply
+    else:
+        scat = lambda tgt, vals: drop_add_(tgt, kf, vals)  # noqa: E731
+
+    scat(flat(grid.wsum), wf)
+    scat(flat(grid.wsdf), wsdff)
+    if cfg.semantic.color_mode == ColorMode.COLOR:
+        for c in range(3):
+            vals = torch.cat([(st.wc_gate * st.colors[None, :, c])
+                              .reshape(-1) for st in streams])
+            scat(flat(grid.wcolor[c]), vals)
+
+    def sem_step(st):
+        return (st.step_valid & (st.wc_gate > 0.0)
+                if cfg.semantic.update_near_surface_only else st.step_valid)
+
+    label_hist = None
+    if sem_points is not None:
+        # The sparse votes folded back into per-ray histograms of batch 0.
+        pr, pl_, pv, pc = sem_points
+        R0 = streams[0].key.shape[1]
+        pl_ = torch.where(pl_ < 0, pl_ + L, pl_).long()
+        ok = (pl_ >= 0) & (pl_ < L)
+        label_hist = torch.zeros((R0 * L + 1,), dtype=torch.float32,
+                                 device=kf.device)
+        label_hist.index_add_(
+            0, torch.where(ok, pr.long() * L + pl_, R0 * L),
+            torch.where(pv & ok, pc, 0.0))
+        label_hist = label_hist[:R0 * L].reshape(R0, L)
+
+    for bi, st in enumerate(streams):
+        ss = sem_step(st)
+        kfs = st.key.reshape(-1)
+        if sorted_mode:
+            sus = SortedUpdates.build(kfs, trash_key=-1)
+            scs = sus.apply
+        else:
+            def scs(tgt, vals, k=kfs):
+                return drop_add_(tgt, k, vals)
+        if bi == 0 and label_hist is not None:
+            # The merged integrator: each ray's histogram applied to every
+            # voxel it traverses (_merged.cpp:254-328); unknown adds 0.
+            hist = label_hist.clone()
+            hist[:, semantic.UNKNOWN_LABEL] = 0.0
+            total = hist.sum(dim=-1)
+            scs(flat(grid.sem_count),
+                torch.where(ss, total[None, :], 0.0).reshape(-1))
+            for lab in range(L):
+                add = torch.where(ss, hist[:, lab][None, :], 0.0) * f32(
+                    lk.delta)
+                scs(flat(grid.sem_delta[lab]), add.reshape(-1))
+            continue
+        # One label per job: scalar adds at (label, key).
+        inform = semantic.informative(st.labels) & st.job_valid
+        cnt = torch.where(ss & inform[None, :], 1.0, 0.0)
+        scs(flat(grid.sem_count), cnt.reshape(-1))
+        lab_b = st.labels[None, :].to(torch.int64).expand(st.key.shape)
+        if sorted_mode:
+            su2 = SortedUpdates.build(kfs, trash_key=-1,
+                                      secondary=lab_b.reshape(-1))
+            seg_lab = su2.secondary_at_segments()
+            out_idx = torch.where(su2.out_keys >= 0,
+                                  seg_lab * row_flat + su2.out_keys, -1)
+            su2.apply(flat(grid.sem_delta), cnt.reshape(-1) * f32(lk.delta),
+                      out_index=out_idx)
+        else:
+            lkey = torch.where(cnt > 0, lab_b * row_flat + st.key,
+                               L * row_flat)
+            drop_add_(flat(grid.sem_delta), lkey,
+                      torch.full(lkey.shape, f32(lk.delta),
+                                 device=lkey.device))
+
+    grid.updated[touched_slots.long()] = True
+    return grid
 
 
 def _segment_scatter_apply(grid, cfg, streams, touched_slots, lab_shift, lk,

@@ -1,8 +1,8 @@
 """The port's kernels: wrappers, plain versions, launch counts.
 
-Counterpart: kimera_semantics_tpu/ops/pallas_kernels.py. Each TPU kernel
-ported so far is a hand-written CUDA kernel (../csrc/*.cu, built by
-_build.py):
+Counterpart: kimera_semantics_tpu/ops/pallas_kernels.py and the `_add`
+kernel of scripts/profile_scatter_r4.py. Every TPU kernel of the repo is a
+hand-written CUDA kernel here (../csrc/*.cu, built by _build.py):
 
   dda_job_stream          K1  csrc/dda.cu           (pallas_kernels.dda_job_stream)
   block_meta              K2  csrc/block_meta.cu    (pallas_kernels.block_meta)
@@ -11,6 +11,7 @@ _build.py):
   slot_resolve_stream     K6  csrc/slot_resolve.cu  (pallas_kernels.slot_resolve_stream,
                                                      cube_geometry, cube_lut_supported)
   block_rmw_add           K5  csrc/block_rmw.cu     (pallas_kernels.block_rmw_add)
+  add_f32                 K7  csrc/add.cu           (scripts/profile_scatter_r4.py _add)
 
 Each wrapper takes its plain PyTorch version (`*_plain`, same signature)
 only when its tensors lie on the CPU; on CUDA tensors it launches the kernel
@@ -33,7 +34,7 @@ from . import tsdf as tsdf_ops
 
 launches = {"dda_job_stream": 0, "block_meta": 0,
             "projective_apply_fused": 0, "projective_sample_update": 0,
-            "slot_resolve_stream": 0, "block_rmw_add": 0}
+            "slot_resolve_stream": 0, "block_rmw_add": 0, "add_f32": 0}
 
 
 def reset_launches():
@@ -698,3 +699,31 @@ def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
                      p, _stream(dev)), "block_rmw_add")
         launches["block_rmw_add"] += 1
     return wsum, wsdf, sem_count, sem_delta, wcolor
+
+
+# ---------------------------------------------------------------------------
+# K7: elementwise add (the profiling tool's warm-kernel probe)
+# ---------------------------------------------------------------------------
+
+def add_f32_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: x + y."""
+    return x + y
+
+
+def add_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """o = x + y for two float32 tensors of one shape (K7,
+    tools/profile_scatter.py --warm-kernel)."""
+    if _on_cpu(x):
+        return add_f32_plain(x, y)
+    dev = x.device
+    _check(x, "x", torch.float32, x.shape, dev)
+    _check(y, "y", torch.float32, x.shape, dev)
+    o = torch.empty_like(x)
+    if x.numel() > 0:
+        fn = _build.bind("add", "ksd_add_f32",
+                         (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,
+                                                   ctypes.c_void_p))
+        _raise_on(fn(_ptr(x), _ptr(y), _ptr(o), x.numel(), _stream(dev)),
+                  "add_f32")
+        launches["add_f32"] += 1
+    return o

@@ -1,8 +1,9 @@
 """Sorted segment reduction: the ray integrators' update-stream reduce.
 
 Counterpart: kimera_semantics_tpu/ops/reduce.py (TRASH_KEY,
-stable_compact_order, segmented_scan_sums, segment_compact_reduce) and
-the in-order scatter-add of a sorted index list (add_sorted_runs). The
+stable_compact_order, segmented_scan_sums, segment_compact_reduce,
+SortedUpdates, sorted_scatter_add) and the in-order scatter-add of a
+sorted index list (add_sorted_runs). The
 update stream is sorted by key, summed within runs of equal keys by an exact
 segmented scan, and the run totals are compacted to a static budget, so the
 grid sees each (voxel, label) once per frame.
@@ -12,12 +13,20 @@ are not: keys, counts and the number of dropped segments come out the same,
 and float sums agree within rounding (the same Hillis-Steele tree, over
 entries of equal key that may sit in another order). No sum goes through
 `index_add_`/`scatter_add_`, whose atomics on CUDA would make two runs
-differ. `SortedUpdates` (scatter_mode "sorted") is not ported yet.
+differ.
+
+`SortedUpdates` (scatter_mode "sorted") keeps the reference's form: one
+stable sort, segment ends, and segment sums taken as differences of a
+float32 cumsum, so a sum's rounding is set by the prefix magnitude, not by
+the segment. On CUDA `torch.cumsum` is a parallel scan that rounds
+differently from the CPU's sequential one: the difference is bounded by
+the prefix magnitude times the float32 epsilon.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -113,3 +122,102 @@ def add_sorted_runs(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     last = torch.ones((n,), dtype=torch.bool, device=idx.device)
     last[:-1] = new[1:]
     buf.index_add_(1, idx[last].long(), acc[:, last])
+
+
+def drop_add_(target_flat: torch.Tensor, idx: torch.Tensor,
+              vals: torch.Tensor):
+    """target_flat[idx] += vals with the reference's scatter semantics:
+    negative indices count from the end (numpy), and indices still out of
+    range are dropped (`mode="drop"`). torch has no drop mode, and on CUDA
+    an out-of-range index is a device-side assert, so a dropped entry adds
+    0.0 into the target's last word instead (the trash tile's, for a grid
+    channel), on the CPU and on the card alike. Duplicate indices
+    accumulate; on CUDA in an order that varies from run to run."""
+    n = target_flat.shape[0]
+    idx = idx.reshape(-1).long()
+    vals = vals.reshape((idx.shape[0],) + tuple(target_flat.shape[1:]))
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    okv = ok.reshape((-1,) + (1,) * (vals.dim() - 1))
+    target_flat.index_add_(0, torch.where(ok, idx, n - 1),
+                           torch.where(okv, vals, torch.zeros_like(vals)))
+    return target_flat
+
+
+def sorted_scatter_add(target_flat: torch.Tensor, keys: torch.Tensor,
+                       values: torch.Tensor, trash_key: int) -> torch.Tensor:
+    """target_flat (M[, C]) += segment sums of values (N[, C]) grouped by
+    keys (N,), in place; entries with key == trash_key are dropped."""
+    return SortedUpdates.build(keys, trash_key).apply(target_flat, values)
+
+
+class SortedUpdates:
+    """One sort, many channels: the update stream sorted by key (and a
+    secondary key), its segment ends, and one output key per segment."""
+
+    def __init__(self, order, sorted_keys, ends, out_keys, mask,
+                 sec_sorted=None):
+        self.order = order                # (N,) sorting permutation
+        self.sorted_keys = sorted_keys
+        self.ends = ends                  # (N,) segment end positions
+        self.out_keys = out_keys          # (N,) key per segment slot, -1 off
+        self.mask = mask                  # (N,) bool: a real segment slot
+        self._sec_sorted = sec_sorted
+
+    @staticmethod
+    def build(keys: torch.Tensor, trash_key: int,
+              secondary: Optional[torch.Tensor] = None) -> "SortedUpdates":
+        keys = keys.reshape(-1)
+        n = keys.shape[0]
+        idx = torch.arange(n, dtype=torch.int32, device=keys.device)
+        if secondary is None:
+            sk, order = torch.sort(keys, stable=True)
+            sec_sorted = None
+        else:
+            secondary = secondary.reshape(-1)
+            o2 = torch.argsort(secondary, stable=True)
+            o1 = torch.argsort(keys[o2], stable=True)
+            order = o2[o1]
+            sk, sec_sorted = keys[order], secondary[order]
+        # Segment end i: the last position of a run of equal (key[, sec]).
+        neq = sk[:-1] != sk[1:]
+        if sec_sorted is not None:
+            neq = neq | (sec_sorted[:-1] != sec_sorted[1:])
+        one = torch.ones((1,), dtype=torch.bool, device=keys.device)
+        is_end = torch.cat([neq, one])
+        # The ends compacted to the front, ascending (n past them).
+        ends = torch.sort(torch.where(is_end, idx, n))[0]
+        seg_count = is_end.sum(dtype=torch.int32)
+        mask = (idx < seg_count) & (ends < n)
+        safe_ends = torch.clamp(ends, max=n - 1).long()
+        ek = sk[safe_ends]
+        out_keys = torch.where(mask & (ek != trash_key), ek,
+                               torch.full_like(ek, -1))
+        return SortedUpdates(order, sk, safe_ends, out_keys, mask,
+                             sec_sorted)
+
+    def segment_sums(self, values: torch.Tensor) -> torch.Tensor:
+        """Per-segment sums of values (N[, C]) at the segment slots, as
+        differences of the float32 cumsum at the segment ends."""
+        v = values.reshape((self.order.shape[0],) + tuple(values.shape[1:]))
+        c = torch.cumsum(v[self.order].float(), dim=0)
+        at_end = c[self.ends]
+        prev = torch.cat([torch.zeros_like(at_end[:1]), at_end[:-1]])
+        m = self.mask.reshape((-1,) + (1,) * (v.dim() - 1))
+        return torch.where(m, at_end - prev, torch.zeros_like(at_end))
+
+    def apply(self, target_flat: torch.Tensor, values: torch.Tensor,
+              out_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """target_flat += the segment sums at their keys (or `out_index`),
+        in place; slots with a negative key are dropped."""
+        sums = self.segment_sums(values)
+        keys = self.out_keys if out_index is None else out_index
+        n = target_flat.shape[0]
+        # Dropped slots aim past the end, as the reference's do.
+        slot = torch.arange(keys.shape[0], device=keys.device)
+        return drop_add_(target_flat, torch.where(keys >= 0, keys.long(),
+                                                  n + slot), sums)
+
+    def secondary_at_segments(self) -> torch.Tensor:
+        """The sorted secondary key (e.g. the label) of each segment."""
+        return self._sec_sorted[self.ends]

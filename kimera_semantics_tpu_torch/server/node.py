@@ -3,16 +3,20 @@
 Counterpart: kimera_semantics_tpu/server/node.py, with the same flags and
 one more, --device (default cuda; cpu runs the kernels' plain versions):
 
-  python -m kimera_semantics_tpu_torch.server.node stream <dataset_dir> ...
+  python -m kimera_semantics_tpu_torch.server.node stream <dataset> ...
       live-streaming server (periodic incremental meshing while frames
       arrive)
-  python -m kimera_semantics_tpu_torch.server.node batch <dataset_dir> ...
-      offline batch reconstruction (PLY mesh, map save)
+  python -m kimera_semantics_tpu_torch.server.node batch <dataset> ...
+      offline batch reconstruction (PLY mesh, map save; with a .bag,
+      --esdf and a .vxblx --map-out, the reference's rosbag batch and its
+      tsdf_esdf.vxblx)
   python -m kimera_semantics_tpu_torch.server.node sim-eval ...
       synthetic-world evaluation (one JSON line)
 
-Not ported yet (slice D), and refused with a message rather than ignored:
---devices > 1, .bag datasets, --esdf, --esdf-every and --enable-icp.
+<dataset> is a directory of frame_*.npz files or a ROS1 .bag (image
+topics, or an organised PointCloud2 with --pointcloud-topic; TF, and
+static extrinsics from --static-tf-csv). Not ported yet (slice E), and
+refused with a message rather than ignored: --devices > 1.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import json
 import os
 import sys
 
-SLICE_D = "not ported yet (slice D)"
+SLICE_E = "not ported yet (slice E)"
 
 
 def _add_common(p):
@@ -92,7 +96,7 @@ def _add_common(p):
     p.add_argument("--max-rays", type=int, default=32768)
     p.add_argument("--devices", type=int, default=1,
                    help="spatial sharding over N devices: not ported yet "
-                        "(slice D); only 1 is accepted")
+                        "(slice E); only 1 is accepted")
     p.add_argument("--alloc-stride", type=int, default=4,
                    help="projective: pixel subsampling for block allocation")
     p.add_argument("--block-budget", type=int, default=512,
@@ -279,20 +283,10 @@ def _build(args):
 
 
 def _refuse_slice_d(args):
-    """Exit with a message for the options of slice D."""
-    bad = []
+    """Exit with a message for the options not ported yet: the sharded
+    runs of slice E (--devices > 1)."""
     if args.devices > 1:
-        bad.append(f"--devices {args.devices}")
-    if getattr(args, "dataset", "").endswith(".bag"):
-        bad.append(".bag datasets")
-    if args.esdf:
-        bad.append("--esdf")
-    if args.esdf_every:
-        bad.append("--esdf-every")
-    if args.enable_icp:
-        bad.append("--enable-icp")
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: {SLICE_D} in "
+        raise SystemExit(f"--devices {args.devices}: {SLICE_E} in "
                          "kimera_semantics_tpu_torch")
 
 
@@ -315,17 +309,47 @@ def _trace(trace_dir: str, device):
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
+def _dataset(args, lmap, dev):
+    """The CLI's dataset: a ROS1 .bag (the reference's rosbag front door,
+    kimera_semantics_rosbag.cpp) or a directory of npz frames."""
+    from ..io.dataset import DirectoryDataset
+    if not args.dataset.endswith(".bag"):
+        return DirectoryDataset(args.dataset, label_map=lmap, device=dev)
+    from ..io.rosbag import RosbagDataset
+    tf_csv = _resolve_cfg_file(args.static_tf_csv, args.cfg_dir)
+    if args.static_tf_csv and tf_csv is None:
+        # Dropped extrinsics would corrupt every pose: a hard error, unlike
+        # the label CSV's fallback (colours are cosmetic).
+        raise SystemExit(
+            f"static-TF CSV {args.static_tf_csv!r} not found "
+            "(see --cfg-dir / $KIMERA_CFG_DIR)")
+    common = dict(cam_info_topic=args.cam_info_topic,
+                  world_frame=args.world_frame,
+                  sensor_frame=args.sensor_frame, label_map=lmap,
+                  static_tf_csv=tf_csv,
+                  static_tf_parent=args.static_tf_parent, device=dev)
+    if args.pointcloud_topic:
+        return RosbagDataset(args.dataset,
+                             pointcloud_topic=args.pointcloud_topic,
+                             **common)
+    return RosbagDataset(args.dataset, depth_topic=args.depth_topic,
+                         semantic_topic=args.semantic_topic or None,
+                         **common)
+
+
 def cmd_batch(args, streaming: bool):
     """stream/batch; prints the JSON line and returns (server, its
-    dict)."""
+    dict). In the reference's order (kimera_semantics_rosbag.cpp:148-167):
+    integrate, mesh, then with --esdf the batch ESDF, then the map, the
+    ESDF layer appended to a .vxblx."""
     from ..device import resolve
-    from ..io.dataset import DirectoryDataset
+    from ..ops import esdf as esdf_ops
     from ..server.pipeline import SemanticTsdfServer, ServerConfig
     from ..utils import timing
 
     cfg, lmap = _build(args)
     dev = resolve(args.device)
-    ds = DirectoryDataset(args.dataset, label_map=lmap, device=dev)
+    ds = _dataset(args, lmap, dev)
     srv = SemanticTsdfServer(
         cfg, ds.intr, lmap,
         ServerConfig(mesh_every_n_frames=5 if streaming else 0,
@@ -334,9 +358,18 @@ def cmd_batch(args, streaming: bool):
                      mesh_connected=args.connected_mesh,
                      log_every_n_frames=args.log_every,
                      stats_jsonl=args.stats_jsonl,
+                     esdf_every_n_frames=args.esdf_every,
+                     esdf_max_dist=args.esdf_max_dist,
                      live_mesh_path=args.live_mesh,
                      live_mesh_keep=args.live_mesh_keep,
-                     live_mesh_port=args.live_port), device=dev)
+                     live_mesh_port=args.live_port,
+                     enable_icp=args.enable_icp,
+                     icp_iters=args.icp_iters,
+                     icp_subsample=args.icp_subsample,
+                     icp_refine_roll_pitch=not args.icp_no_refine_roll_pitch,
+                     icp_damping=args.icp_damping,
+                     icp_min_match_ratio=args.icp_min_match_ratio),
+        device=dev)
     if srv.live_streamer is not None:
         print(f"live mesh: http://127.0.0.1:{srv.live_streamer.port}/",
               file=sys.stderr)
@@ -367,8 +400,14 @@ def cmd_batch(args, streaming: bool):
     if args.validate:
         from ..utils import checks
         out["invariants"] = checks.validate_grid(srv.grid, cfg)
+    res = None
+    if args.esdf:
+        with timing.Timer("esdf/batch"):
+            res = srv.esdf = esdf_ops.compute_esdf_blocked(
+                srv.grid, cfg, max_dist=args.esdf_max_dist)
+        out["esdf_voxels"] = int(res.distance.size)
     if args.map_out:
-        srv.save_map(args.map_out)
+        srv.save_map(args.map_out, esdf=res)
     print(timing.report(), file=sys.stderr)
     print(json.dumps(out))
     return srv, out

@@ -3,9 +3,11 @@
 Counterpart: kimera_semantics_tpu/server/pipeline.py (ServerConfig,
 SemanticTsdfServer). A frame loop without ROS, with
   - message throttling (`min_time_between_msgs_sec`, TsdfServer behavior),
+  - scan-to-map ICP before integration (`enable_icp`, ops/icp.py),
   - integrator dispatch via the factory,
   - periodic incremental mesh updates, synchronous or pipelined (the cycle
     is dispatched on the stream and collected on a worker thread),
+  - periodic ESDF refreshes (`esdf_every_n_frames`, ops/esdf.py),
   - mesh generation + PLY save, map save/load, pointcloud outputs,
   - per-phase timing (utils/timing.py).
 
@@ -13,7 +15,7 @@ The grid lives on `device` (the card unless the caller asks for the CPU)
 and the integrators update it IN PLACE. A pipelined mesh cycle has
 enqueued all its reads of the grid before `updated` is cleared and the
 next frame is integrated, so stream order keeps it on the grid as it was
-at dispatch. Scan-to-map ICP and the ESDF are not ported yet (slice D).
+at dispatch.
 """
 
 from __future__ import annotations
@@ -42,9 +44,6 @@ from ..models.common import Frame
 from ..ops import mesh as mesh_ops
 from ..utils import timing
 
-SLICE_D = "not ported yet (slice D)"
-
-
 @dataclasses.dataclass
 class ServerConfig:
     mesh_every_n_frames: int = 0      # 0 = no periodic meshing
@@ -53,7 +52,7 @@ class ServerConfig:
     mesh_connected: bool = False      # vertex-deduplicated meshes on
                                       # generate_mesh outputs
     mesh_normals: bool = False        # per-vertex TSDF-gradient normals
-    enable_icp: bool = False          # scan-to-map pose refinement (slice D)
+    enable_icp: bool = False          # scan-to-map pose refinement
     icp_iters: int = 6
     icp_subsample: int = 16
     icp_refine_roll_pitch: bool = True
@@ -62,7 +61,7 @@ class ServerConfig:
     prefetch_depth: int = 2           # frames decoded ahead of the device by
                                       # a producer thread (0 = synchronous)
     esdf_max_dist: float = 4.0
-    esdf_every_n_frames: int = 0      # periodic ESDF refresh (slice D)
+    esdf_every_n_frames: int = 0      # periodic ESDF refresh
     log_every_n_frames: int = 0       # progress lines to stderr (0 = quiet)
     stats_jsonl: str = ""             # one JSON metrics line per frame
     live_mesh_path: str = ""          # rewrite this PLY with the full mesh
@@ -87,17 +86,15 @@ class SemanticTsdfServer:
         self.device = resolve(device)
         self.label_map = label_map or LabelColorMap.random(cfg.grid.num_labels)
         self.server_cfg = sc = server_cfg or ServerConfig()
-        if sc.enable_icp:
-            raise NotImplementedError(f"enable_icp: scan-to-map ICP is "
-                                      f"{SLICE_D}")
-        if sc.esdf_every_n_frames:
-            raise NotImplementedError(f"esdf_every_n_frames: the ESDF is "
-                                      f"{SLICE_D}")
         self.integrator = factory.create(cfg.integrator, cfg, intr,
                                          device=self.device)
         self.grid = gblocks.create(cfg, device=self.device)
         self._frames_integrated = 0
         self._last_stream_time = -np.inf
+        self.esdf = None              # latest periodic ESDF (EsdfBlocked)
+        self.last_icp_match_ratio = None  # fraction of points on observed
+                                          # in-band TSDF at the last ICP
+                                          # (a device tensor)
         self.mesh_callbacks: List[Callable[[mesh_ops.Mesh], None]] = []
         self.mesh_cache = None
         self._live_writer = None
@@ -131,6 +128,8 @@ class SemanticTsdfServer:
             return False
         if stream_time is not None:
             self._last_stream_time = stream_time
+        if self.server_cfg.enable_icp and self._frames_integrated > 0:
+            frame = self._refine_pose(frame)
         t = timing.Timer(f"integrate/{self.cfg.integrator.value}")
         self.grid = self.integrator.integrate(self.grid, frame)
         t.stop(sync=self.grid.wsum)
@@ -141,6 +140,9 @@ class SemanticTsdfServer:
                 self.update_mesh_async()
             else:
                 self.update_mesh()
+        ne = self.server_cfg.esdf_every_n_frames
+        if ne and self._frames_integrated % ne == 0:
+            self.update_esdf()
         return True
 
     def run(self, dataset, max_frames: Optional[int] = None) -> int:
@@ -185,6 +187,22 @@ class SemanticTsdfServer:
             if sink is not None:
                 sink.close()
         return count
+
+    def _refine_pose(self, frame: Frame) -> Frame:
+        """Scan-to-map TSDF alignment (ops/icp.py), voxblox enable_icp."""
+        from ..core import camera as cam
+        from ..ops import icp as icp_ops
+        sc = self.server_cfg
+        with timing.Timer("icp/align"):
+            pts_C, valid = cam.backproject(frame.depth, self.intr)
+            stride = max(1, sc.icp_subsample)
+            pts_C, valid = pts_C[::stride], valid[::stride]
+            T, _, self.last_icp_match_ratio = icp_ops.align_to_map(
+                self.grid, self.cfg, pts_C, valid, frame.T_G_C,
+                iters=sc.icp_iters, damping=sc.icp_damping,
+                refine_roll_pitch=sc.icp_refine_roll_pitch,
+                min_match_ratio=sc.icp_min_match_ratio)
+        return dataclasses.replace(frame, T_G_C=T)
 
     # -- meshing / output --------------------------------------------------
 
@@ -276,7 +294,14 @@ class SemanticTsdfServer:
         return m
 
     def update_esdf(self):
-        raise NotImplementedError(f"update_esdf: the ESDF is {SLICE_D}")
+        """Refresh the ESDF from the current TSDF state (the EsdfServer
+        update cycle): a full block-sparse jump-flooding pass over the
+        allocated blocks (ops/esdf.py)."""
+        from ..ops import esdf as esdf_ops
+        with timing.Timer("esdf/update"):
+            self.esdf = esdf_ops.compute_esdf_blocked(
+                self.grid, self.cfg, max_dist=self.server_cfg.esdf_max_dist)
+        return self.esdf
 
     def generate_mesh(self, path: Optional[str] = None) -> mesh_ops.Mesh:
         """Full mesh over all allocated blocks (+ optional PLY save),
@@ -350,8 +375,9 @@ class SemanticTsdfServer:
 
     def save_map(self, path: str, esdf=None):
         """saveMap. A `.vxblx` extension selects the voxblox-compatible wire
-        format (TSDF layer); any other the KSDV container, which also
-        round-trips the semantic channels."""
+        format: the TSDF layer, and given `esdf` the ESDF layer after it
+        (the reference's tsdf_esdf.vxblx); any other the KSDV container,
+        which also round-trips the semantic channels."""
         self.join_mesh()
         if path.endswith(".vxblx"):
             from ..io import vxblx as vxblx_io

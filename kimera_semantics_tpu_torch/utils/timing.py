@@ -86,7 +86,8 @@ def reset():
 def get(name: str):
     """(total_s, count, mean_s) for a timer name."""
     with _registry.lock:
-        t, c = _registry.totals[name], _registry.counts[name]
+        # .get: reading a timer that never ran must not register it.
+        t, c = _registry.totals.get(name, 0.0), _registry.counts.get(name, 0)
     return t, c, (t / c if c else 0.0)
 
 

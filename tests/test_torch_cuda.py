@@ -190,7 +190,8 @@ def test_main_path_matches_plain(cuda):
         proj.integrate_frame(g, f, cfg, INTR, device=cuda)
     assert kernels.launches == dict(
         dda_job_stream=3, block_meta=3, projective_apply_fused=3,
-        projective_sample_update=0, slot_resolve_stream=0, block_rmw_add=0)
+        projective_sample_update=0, slot_resolve_stream=0, block_rmw_add=0,
+        add_f32=0)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
@@ -521,3 +522,99 @@ def test_async_mesh_reads_the_grid_at_dispatch(cuda):
     now = mesh.extract_mesh(g, cfg, lmap)
     assert now.num_triangles != ref[0].num_triangles or not np.array_equal(
         now.vertices, ref[0].vertices)
+
+
+# ---------------------------------------------------------------------------
+# K7 add_f32, the plain scatter modes, the ESDF and ICP on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 128), (1000,), (3, 5, 7)])
+def test_add_f32(cuda, shape):
+    rng = np.random.RandomState(sum(shape))
+    x, y = (torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device=cuda) for _ in range(2))
+    before = kernels.launches["add_f32"]
+    got = kernels.add_f32(x, y)
+    assert kernels.launches["add_f32"] == before + 1
+    assert torch.equal(got, kernels.add_f32_plain(x, y))
+    with pytest.raises(ValueError):
+        kernels.add_f32(x.double(), y.double())
+
+
+def card_and_cpu_grids(cfg, cuda, n_frames=3, model=fast):
+    """The same frames through `model` on the card and on the CPU."""
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = [ds.frame(i) for i in range(n_frames)]
+    g = blocks.create(cfg, device=cuda)
+    c = blocks.create(cfg, device="cpu")
+    for f in frames:
+        model.integrate_frame(g, f, cfg, INTR, device=cuda)
+        fc = dataclasses.replace(f, **{k: getattr(f, k).cpu() for k in (
+            "depth", "labels", "colors", "T_G_C")})
+        model.integrate_frame(c, fc, cfg, INTR, device="cpu")
+    return g, c
+
+
+@pytest.mark.parametrize("mode", ["direct", "sorted"])
+def test_plain_scatter_modes_on_card(cuda, mode):
+    """scatter_mode "direct" and "sorted" on the card against the same
+    frames on the CPU: block sets, counters and counts exact. "direct" adds
+    with float atomics on the card: floats within 1e-5 relative plus 1e-5
+    of the channel's largest value. "sorted" takes each frame's segment sums
+    as differences of one running cumsum, a parallel scan on the card and a
+    sequential one on the CPU, so they differ by ulps of that prefix:
+    within 8 eps P, P the channel's grid total (for wsdf, truncation times
+    wsum's), which no frame's prefix exceeds."""
+    cfg = ray_config("projective")
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, scatter_mode=mode))
+    g, c = card_and_cpu_grids(cfg, cuda)
+    n = int(g.n_blocks)
+    assert n == int(c.n_blocks) > 0 and int(g.overflow) == int(c.overflow)
+    coords = g.block_coords[:n]
+    a = blocks.lookup_slots(g, coords, cfg.grid).long().cpu()
+    b = blocks.lookup_slots(c, coords.cpu(), cfg.grid).long()
+    assert bool((b < cfg.grid.block_capacity).all())
+    for name in ("wsum", "wsdf", "sem_count", "sem_delta"):
+        x, y = getattr(g, name).cpu(), getattr(c, name)
+        x, y = (x[:, a], y[:, b]) if x.dim() == 3 else (x[a], y[b])
+        if name == "sem_count":
+            assert torch.equal(x, y)
+            continue
+        if mode == "direct":
+            tol = 1e-5 * (y.abs() + y.abs().max())
+        else:
+            P = (cfg.tsdf.truncation_distance * float(c.wsum[b].sum())
+                 if name == "wsdf" else float(y.abs().sum()))
+            tol = 8 * float(torch.finfo(torch.float32).eps) * P
+        assert bool(((x - y).abs() <= tol).all()), name
+
+
+def test_esdf_and_icp_on_card_match_cpu(cuda):
+    """The batch ESDF and one ICP alignment of the same grid on the card
+    and on the CPU: ESDF block coordinates and observed flags exact,
+    distances within 1e-5 m; the refined pose within 1e-4."""
+    from kimera_semantics_tpu_torch.core import camera as cam
+    from kimera_semantics_tpu_torch.ops import esdf, icp
+    cfg = ray_config("projective")
+    g, _ = card_and_cpu_grids(cfg, cuda, n_frames=3)
+    c = blocks.VoxelGrid(**{k: getattr(g, k).cpu()
+                            for k in blocks.FIELDS})
+    rg = esdf.compute_esdf_blocked(g, cfg, max_dist=1.6)
+    rc = esdf.compute_esdf_blocked(c, cfg, max_dist=1.6)
+    np.testing.assert_array_equal(rg.block_coords, rc.block_coords)
+    np.testing.assert_array_equal(rg.observed, rc.observed)
+    np.testing.assert_allclose(rg.distance, rc.distance, rtol=0, atol=1e-5)
+    ds = SyntheticDataset(num_frames=12, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    f = ds.frame(1)
+    xi = torch.tensor([0.01, -0.01, 0.01, 0.02, -0.015, 0.015],
+                      device=cuda)
+    T = f.T_G_C.float() @ icp._exp_se3(xi)
+    pts, valid = cam.backproject(f.depth, INTR)
+    tg, rms_g, ratio_g = icp.align_to_map(g, cfg, pts, valid, T)
+    tc, rms_c, ratio_c = icp.align_to_map(c, cfg, pts.cpu(), valid.cpu(),
+                                          T.cpu())
+    assert float(ratio_g) == pytest.approx(float(ratio_c), abs=1e-3)
+    np.testing.assert_allclose(tg.cpu().numpy(), tc.numpy(), atol=1e-4)

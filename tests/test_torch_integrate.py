@@ -236,15 +236,16 @@ def test_single_and_clearing_rays_match_oracle(cube):
 
 
 def test_not_yet_ported_options_raise():
+    """Sharding and multi-frame anti-grazing wait for slice E; the plain
+    scatter modes run (tests/test_torch_scatter_modes.py)."""
     cfg = make_cfg()
     args = (np.zeros(3), np.array([[1.0, 0.3, 0.2]]), np.array([5]),
             np.array([False]), np.full((1, 3), 100.0), np.ones(1), False)
     direct = dataclasses.replace(cfg, pipeline=dataclasses.replace(
         cfg.pipeline, scatter_mode="direct"))
-    with pytest.raises(NotImplementedError, match="slice D"):
-        run_rays(direct, *args)
+    assert float(run_rays(direct, *args).wsum.sum()) > 0
     grid = tblocks.create(cfg, device="cpu")
     for kw in (dict(shard_id=torch.tensor(0), num_shards=2),
                dict(ag_frames=2)):
-        with pytest.raises(NotImplementedError, match="slice D"):
+        with pytest.raises(NotImplementedError, match="slice E"):
             tinteg.integrate_jobs(grid, cfg, [], **kw)

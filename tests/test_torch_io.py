@@ -158,8 +158,6 @@ def test_save_vxblx_bytes_match(tmp_path, io_vps):
     jl = jvxblx.load_vxblx(pj, cj)
     tl = tvxblx.load_vxblx(pt, ct, device="cpu")
     same_grid_by_coords(jl, tl, ct)
-    with pytest.raises(NotImplementedError, match="slice D"):
-        tvxblx.save_vxblx(pt, tg, ct, esdf=object())
 
 
 class ArrayDataset:

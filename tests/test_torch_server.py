@@ -3,7 +3,8 @@ against the JAX package's (CPU): the fast server over a few tiny synthetic
 frames (stats exact, the final mesh equal as welded vertex and triangle
 sets), its pointclouds and compare_grids, throttling, the incremental mesh
 clearing `updated`, checkpoints, the presets, the `batch` and `sim-eval`
-commands, and the flags of slice D.
+commands (batch also from a .bag with --esdf and --enable-icp), and the
+flags that are not ported yet.
 
 Tolerances: stats, triangle counts and welded sets exact (vertices welded
 on the 2^-10-voxel grid of connect_mesh); sim-eval's errors within 1e-6
@@ -273,11 +274,61 @@ def test_cli_batch(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--esdf"], ["--esdf-every", "3"],
                                   ["--enable-icp"], ["--devices", "2"]])
 def test_slice_d_flags_exit(flag, tmp_path):
-    with pytest.raises(SystemExit, match="slice D"):
-        tnode.main(["batch", str(tmp_path), "--device", "cpu"] + flag)
-    with pytest.raises(SystemExit, match="slice D"):
-        tnode.main(["batch", str(tmp_path / "x.bag"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice D"):
-        tpipeline.SemanticTsdfServer(
-            configs()[1], TINTR, device="cpu",
-            server_cfg=tpipeline.ServerConfig(enable_icp=True))
+    """The flags of slice D run now; only --devices > 1 (slice E) exits
+    with a message."""
+    args = tnode.parse_args(["batch", str(tmp_path / "x.bag"), "--device",
+                             "cpu"] + flag)
+    if flag[0] == "--devices":
+        with pytest.raises(SystemExit, match="slice E"):
+            tnode._refuse_slice_d(args)
+        with pytest.raises(SystemExit, match="slice E"):
+            tnode.main(["batch", str(tmp_path), "--device", "cpu"] + flag)
+        return
+    tnode._refuse_slice_d(args)
+    srv = tpipeline.SemanticTsdfServer(
+        configs()[1], TINTR, device="cpu",
+        server_cfg=tpipeline.ServerConfig(
+            enable_icp=args.enable_icp,
+            esdf_every_n_frames=args.esdf_every))
+    assert srv.server_cfg.enable_icp == args.enable_icp
+
+
+def test_cli_batch_bag_esdf_icp_matches_jax(tmp_path, capsys):
+    """`batch golden_scene.bag --esdf --enable-icp` (the reference's rosbag
+    batch with scan-to-map ICP and the batch ESDF into tsdf_esdf.vxblx)
+    against the JAX CLI on the bag's first 4 frames: the JSON line equal,
+    both layers written over the same blocks."""
+    from kimera_semantics_tpu_torch.io import vxblx
+    argv = ["batch", "tests/fixtures/golden_scene.bag", "--voxel-size",
+            "0.1", "--voxels-per-side", "8", "--block-capacity", "1024",
+            "--truncation", "0.2", "--max-rays", "12288", "--esdf",
+            "--esdf-max-dist", "2.0", "--enable-icp", "--max-frames", "4",
+            "--mesh-out", ""]
+    pj, pt = str(tmp_path / "j.vxblx"), str(tmp_path / "t.vxblx")
+    jnode.main(argv + ["--map-out", pj])
+    ref = last_json(capsys)
+    got = tnode.main(argv + ["--map-out", pt, "--device", "cpu"])
+    assert last_json(capsys) == json.loads(json.dumps(got))
+    for k in ("frames", "triangles", "blocks", "overflow", "dropped_rays",
+              "observed_voxels", "esdf_voxels"):
+        assert got[k] == ref[k], k
+    assert got["frames"] == 4 and got["esdf_voxels"] > 0
+    sj, st = vxblx.read_sections(pj), vxblx.read_sections(pt)
+    assert [s.type for s in st] == [s.type for s in sj] == ["tsdf", "esdf"]
+    for a, b in zip(st, sj):
+        np.testing.assert_array_equal(a.block_origins, b.block_origins)
+    flags = [s.voxel_data.reshape(len(s.block_origins), -1, 2)[..., 1]
+             for s in (st[1], sj[1])]
+    np.testing.assert_array_equal(*flags)
+
+
+def test_cli_bag_missing_static_tf_csv_is_an_error(tmp_path):
+    """Dropped extrinsics would corrupt every pose: a static-TF CSV that
+    cannot be found ends the run, as in the JAX CLI."""
+    for node in (jnode, tnode):
+        with pytest.raises(SystemExit, match="static-TF CSV"):
+            node.main(["batch", "tests/fixtures/golden_scene.bag",
+                       "--static-tf-csv", "no_such_static_tfs.csv",
+                       "--cfg-dir", str(tmp_path), "--voxel-size", "0.1",
+                       "--block-capacity", "64"]
+                      + (["--device", "cpu"] if node is tnode else []))
