@@ -6,7 +6,8 @@ NVIDIA GPU.
 
 Phases, each of which must complete:
   1. build the CUDA kernels from kimera_semantics_tpu_torch/csrc (nvcc, one
-     process per source, in parallel);
+     process per source, in parallel), print each kernel's ptxas report and
+     the static SASS of K3, K4 and K5;
   2. hold each kernel of the projective main path (K1-K3, and K4 at the
      same frame list) against its plain PyTorch version on the card, at
      the main path's shapes, and time both, and time an empty kernel
@@ -25,7 +26,8 @@ Phases, each of which must complete:
      the fast integrator at bench.py's fast configuration (K1 at voxel
      granularity, K6 slot_resolve_stream, K5 block_rmw_add in packed
      staging, and K5 in dense and onehot form at the same rows), hold each
-     against its plain version on the card and time both;
+     against its plain version on the card and time both (K5 also with the
+     L2 flushed before each launch);
   5. drive the fast integrator (models/fast.py integrate_frame) at that
      configuration over 4 warm-up and 24 timed frames, check the launches
      per frame (K1 twice, K2, K3, K6 and K5 once) and that no block
@@ -37,7 +39,7 @@ Phases, each of which must complete:
      compare its grid block by block with a re-run through the plain
      versions, and trace it for its stages;
   7. the serving output: K4 at 32^3 literal storage (V3 = 32768) against
-     its plain version; the CLI (`node batch --preset demo --method
+     its plain version, and K5 in onehot form on its deltas; the CLI (`node batch --preset demo --method
      projective --storage-vps 32`) over 4 + 24 frames written with
      save_directory_dataset, with its launches, overflow, PLY and a .vxblx
      that reloads to the grid's TSDF voxels; the stream server at the demo
@@ -182,6 +184,21 @@ def device_time(fn, symbol: str, reps: int):
     return sum(spans) / 1e3 / reps
 
 
+def cold_device_time(fn, symbol: str, reps: int, dev):
+    """device_time of `symbol` with the 50 MB L2 flushed before every call
+    of fn(): a 64 MB scratch tensor is zeroed first (a memset, not the
+    profiled symbol), so the kernel finds its inputs in HBM."""
+    import torch
+    scratch = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+
+    def run():
+        scratch.zero_()
+        fn()
+    ms = device_time(run, symbol, reps)
+    del scratch
+    return ms
+
+
 def busy_ms(events) -> float:
     """ms during which the device ran anything (union of its activities)."""
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -194,13 +211,22 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
+# Kernels whose device time must come from the profiler (no fallback to
+# the wrapper's event time): K3 and K5, templated kernels whose symbols
+# must still contain KERNEL_SYMBOLS' names.
+PROFILED_ONLY = ("projective_apply_fused", "block_rmw_add")
+
+
 def kernel_times(name, fn, plain_fn):
     """The kernel's device ms per launch (profiler; CUDA events around the
-    wrapper calls where the trace shows no device time), the wrapper's ms
-    per call and, given plain_fn, the plain version's ms per call (both
-    CUDA events)."""
+    wrapper calls where the trace shows no device time, except for
+    PROFILED_ONLY, which then fail), the wrapper's ms per call and, given
+    plain_fn, the plain version's ms per call (both CUDA events)."""
     wrapper = cuda_time(fn, REPS)
     dev = device_time(fn, KERNEL_SYMBOLS[name], REPS)
+    if dev is None and name in PROFILED_ONLY:
+        fail(f"{name}: the profiler trace shows no device time for a "
+             f"kernel named *{KERNEL_SYMBOLS[name]}*")
     return dict(ms=dev if dev is not None else wrapper, wrapper_ms=wrapper,
                 timed_by="profiler" if dev is not None else "cuda events",
                 plain_ms=cuda_time(plain_fn, 5) if plain_fn else None)
@@ -494,44 +520,63 @@ def ray_kernel_checks(kt, frames, dev, report):
     forms = {
         "packed": (dict(d_sem=d_packed, sem_packed_ranks=P), None,
                    4 * n_live * V3 * (3 + P), 8 * int((cr[:, rows] > 0)
-                                                        .sum())),
+                                                        .sum()), P),
         "dense": (dict(d_sem=dense), None, 4 * n_live * V3 * (3 + L),
-                  8 * nz(dense.transpose(0, 1))),
-        "onehot": ({}, d_lab, 4 * n_live * V3 * 4, 8 * nz(d_cnt)),
+                  8 * nz(dense.transpose(0, 1)), L),
+        "onehot": ({}, d_lab, 4 * n_live * V3 * 4, 8 * nz(d_cnt), 1),
     }
     base = [getattr(grid, c) for c in CHANNELS]
-    k5 = {}
-    for form, (kw, lab, delta_bytes, vote_bytes) in forms.items():
-        args = lambda chs: (*chs, slots, d_w, d_wsdf, d_cnt, lab, d_wc)  # noqa
-        ck = [t.clone() for t in base]
-        cp = [t.clone() for t in base]
-        kernels.block_rmw_add(*args(ck), lk, **kw)
-        kernels.block_rmw_add_plain(*args(cp), lk, **kw)
-        torch.cuda.synchronize()
-        err = check_outputs(f"K5 ({form})", ck, cp, CHANNELS,
-                            ("wsum", "wsdf", "wcolor"))
-        if torch.equal(ck[3], base[3]):
-            fail(f"K5 ({form}) added no vote")
-        del cp
-        k5[form] = dict(
-            err=err, **kernel_times(
-                "block_rmw_add",
-                lambda: kernels.block_rmw_add(*args(ck), lk, **kw),
-                lambda: kernels.block_rmw_add_plain(*args(ck), lk, **kw)),
-            # the live tiles' deltas read once, the slots, and one read and
-            # one write of each grid word a nonzero delta or a vote adds to
-            bytes=delta_bytes + 4 * Kb + rmw_base + vote_bytes,
-            ops=n_live * V3 * (12 + 4 * (P if form == "packed" else
-                                         L if form == "dense" else 1)))
-        del ck
-        torch.cuda.empty_cache()
-        print(f"[K5 block_rmw_add, {form}] Kb={Kb} V3={V3} live rows "
-              f"{n_live}: counts and label planes bit-exact, float max abs "
-              f"err {err:g}")
+    k5 = {form: k5_check(kernels, form, base, slots, (d_w, d_wsdf, d_cnt),
+                         lab, d_wc, lk, kw, n_live, delta_bytes, vote_bytes,
+                         rmw_base, planes, dev)
+          for form, (kw, lab, delta_bytes, vote_bytes, planes)
+          in forms.items()}
     report["block_rmw_add"] = dict(k5["packed"], forms=k5)
     del grid, base
     torch.cuda.empty_cache()
 
+
+
+def k5_check(kernels, form, base, slots, deltas, lab, d_wc, lk, kw,
+             n_live, delta_bytes, vote_bytes, rmw_base, planes, dev):
+    """K5 in one vote form against its plain version on clones of the grid
+    channels `base` (counts and label planes bit-exact, floats within
+    FLOAT_RTOL), then timed with its inputs warm in L2 and with the L2
+    flushed before each launch. Returns the report entry."""
+    import torch
+    Kb, V3 = deltas[0].shape
+    args = lambda chs: (*chs, slots, *deltas, lab, d_wc)  # noqa: E731
+    ck = [t.clone() for t in base]
+    cp = [t.clone() for t in base]
+    kernels.block_rmw_add(*args(ck), lk, **kw)
+    kernels.block_rmw_add_plain(*args(cp), lk, **kw)
+    torch.cuda.synchronize()
+    err = check_outputs(f"K5 ({form})", ck, cp, CHANNELS,
+                        ("wsum", "wsdf", "wcolor"))
+    if torch.equal(ck[3], base[3]):
+        fail(f"K5 ({form}) added no vote")
+    del cp
+    k5 = lambda: kernels.block_rmw_add(*args(ck), lk, **kw)  # noqa: E731
+    entry = dict(
+        err=err, K=Kb, V3=V3, **kernel_times(
+            "block_rmw_add", k5,
+            lambda: kernels.block_rmw_add_plain(*args(ck), lk, **kw)),
+        cold_ms=cold_device_time(k5, KERNEL_SYMBOLS["block_rmw_add"], REPS,
+                                 dev),
+        # the live tiles' deltas read once, the slots, and one read and
+        # one write of each grid word a nonzero delta or a vote adds to
+        bytes=delta_bytes + 4 * Kb + rmw_base + vote_bytes,
+        ops=n_live * V3 * (12 + 4 * planes))
+    if entry["cold_ms"] is None:
+        fail(f"K5 ({form}): no device time with the L2 flushed")
+    del ck
+    torch.cuda.empty_cache()
+    print(f"[K5 block_rmw_add, {form}] Kb={Kb} V3={V3} live rows "
+          f"{n_live}: counts and label planes bit-exact, float max abs "
+          f"err {err:g}; device {entry['ms']:.5f} ms warm, "
+          f"{entry['cold_ms']:.5f} ms with the L2 flushed before each "
+          "launch")
+    return entry
 
 
 def atlas_pixels(proj_ops, meta, T_C_G, cfg, intr, plan, rows):
@@ -672,26 +717,43 @@ def literal32_config(kt, cfg):
 
 
 def k4_wide_check(kt, kernels, proj, proj_ops, cfg, intr, frame, dev):
-    """K4 at V3 = 32768 (32^3 literal storage), on one frame's list."""
+    """K4 at V3 = 32768 (32^3 literal storage), on one frame's list, then
+    K5 in onehot form on K4's deltas into the freshly allocated grid: the
+    cli_vps32 route's pair. Returns the K4 and K5 report entries."""
     import torch
     from kimera_semantics_tpu_torch.core import transforms
     from kimera_semantics_tpu_torch.grid import blocks
     from kimera_semantics_tpu_torch.ops import mip as mip_ops
+    from kimera_semantics_tpu_torch.ops import semantic as sem_ops
     c32 = literal32_config(kt, cfg)
     plan = proj.make_plan(c32, intr)
     atlas = mip_ops.build_atlas(frame.depth, frame.labels, frame.colors,
                                 plan)
     grid = blocks.create(c32, device=dev)
-    _, fcoords, fslots, freal = proj.allocate_from_atlas(
+    grid, fcoords, fslots, freal = proj.allocate_from_atlas(
         grid, atlas, frame.T_G_C, c32, intr, plan)
-    del grid
     T_C_G = transforms.inverse(frame.T_G_C)
     meta = kernels.block_meta(fcoords, freal, T_C_G, intr, plan,
                               c32.grid.block_size)
     out = k4_check(kernels, proj_ops, "32^3 literal", c32, intr, plan, meta,
                    fslots, T_C_G, atlas)
+    # K5 reads only the live tiles (slot group not the trash group); K4
+    # leaves the others unwritten.
+    d_w, d_wsdf, d_cnt, d_lab, _ = kernels.projective_sample_update(
+        meta, fslots, T_C_G, atlas, c32, intr, plan)
+    rows = (torch.div(fslots, 8, rounding_mode="floor")
+            != c32.grid.block_capacity // 8)
+    nz = lambda x: int((x[rows] != 0).sum())  # noqa: E731
+    n_live, V3 = int(rows.sum()), c32.grid.vps3
+    lk = sem_ops.make_likelihood_cached(c32).delta
+    k5 = k5_check(kernels, "onehot, cli_vps32", [getattr(grid, c) for c in
+                                                 CHANNELS],
+                  fslots, (d_w, d_wsdf, d_cnt), d_lab, None, lk, {}, n_live,
+                  4 * n_live * V3 * 4, 8 * nz(d_cnt),
+                  8 * (nz(d_w) + nz(d_wsdf) + nz(d_cnt)), 1, dev)
+    del grid, d_w, d_wsdf, d_cnt, d_lab
     torch.cuda.empty_cache()
-    return out
+    return out, k5
 
 
 def tsdf_words(vxblx, grid, cfg):
@@ -1367,8 +1429,15 @@ def main() -> int:
         log = os.path.join(_build.build_dir(), f"{name}.log")
         if os.path.exists(log):
             for line in open(log).read().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     print(f"[build] {name}: {line.strip()}")
+    # Static SASS of the redesigned kernels and of K4, which shares K3's
+    # per-voxel code (tools/sass_stats.py).
+    from kimera_semantics_tpu_torch.tools import sass_stats
+    for name in ("proj_apply", "proj_sample", "block_rmw"):
+        for fn, st in sass_stats.stats(paths[name]).items():
+            print(f"[sass] {name}: {fn}: {json.dumps(st)}")
 
     cfg, intr = canonical(kt)
     plan = proj.make_plan(cfg, intr)
@@ -1613,8 +1682,9 @@ def main() -> int:
 
     # -- 7. the serving output: K4 at 32^3, the CLI, the stream server,
     # sim-eval --------------------------------------------------------------
-    k4["32^3 literal"] = k4_wide_check(kt, kernels, proj, proj_ops, cfg,
-                                       intr, frames[0], dev)
+    k4["32^3 literal"], k5_wide = k4_wide_check(kt, kernels, proj, proj_ops,
+                                                cfg, intr, frames[0], dev)
+    report["block_rmw_add"]["variants"] = {"onehot, cli_vps32": k5_wide}
     report["projective_sample_update"] = dict(k4["canonical"], variants=k4)
     cli_phase(kt, kernels, intr, label_map, dev, launches)
     serve_phase(kt, kernels, intr, frames, dev, launches)
@@ -1664,8 +1734,14 @@ def main() -> int:
               f"by {by} ({r['bytes']} B, {r['ops']} ops); least with the "
               f"launch floor {least:.5f} ms, kernel at "
               f"{r['ms'] / least:.2f}x")
+        cold = {}
+        if "cold_ms" in r:
+            cold = dict(cold_ms=r["cold_ms"])
+            print(f"[kernel] {name}{shape}: {r['cold_ms']:.5f} ms device "
+                  f"with the L2 flushed before each launch, "
+                  f"{r['cold_ms'] / least:.2f}x the least")
         return dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound,
-                    bound_by=by)
+                    bound_by=by, **cold)
 
     table = []
     for name, r in report.items():

@@ -1,6 +1,11 @@
 // The per-voxel sample and update terms of the projective apply, shared by
 // K3 (proj_apply.cu, added into the grid in place) and K4 (proj_sample.cu,
-// written out as delta planes), so both run the same instructions.
+// written out as delta planes), so both run the same arithmetic: the
+// projection of a camera-frame point to its atlas pixel (proj_pixel) and the
+// update terms of a sample (proj_terms). K4 reaches them through
+// proj_voxel_terms, one voxel at a time; K3 (proj_apply.cu) computes its
+// voxel coordinates and camera-frame points itself and calls the two
+// pieces for several voxels at once.
 //
 // The TPU kernels (_proj_tile of kimera_semantics_tpu/ops/pallas_kernels.py)
 // sample the atlas window through a bf16 hi/lo one-hot contraction on the
@@ -35,36 +40,24 @@ struct VoxelTerms {
   size_t a;     // atlas offset of the sample (for the colour planes)
 };
 
-// Voxel `vox` of the block of meta row `m` ([v0, u0_atlas, real, lvl,
-// u0_level, bx, by, bz]); tcg is T_C_G's top 3 x 4 rows.
-__device__ __forceinline__ VoxelTerms proj_voxel_terms(
-    const int* __restrict__ m, int vox, const float* __restrict__ tcg,
-    const float* __restrict__ atlas, const ProjParams& p) {
-  VoxelTerms r;
-  r.upd = false;
-  r.label = 0;
-  if (m[2] == 0) return r;  // padding row: no update
-  const int v0 = m[0], u0a = m[1], lvl = m[3], u0l = m[4];
-  const int vps = p.vps;
-  const int lx = vox / (vps * vps), ly = (vox / vps) % vps, lz = vox % vps;
-  // Voxel center in voxel units, projected as h_j * (T_ij * voxel_size):
-  // the reassociated, fused form of ops/projective.py centers_to_camera.
-  const float hx = (float)(m[5] * vps + lx) + 0.5f;
-  const float hy = (float)(m[6] * vps + ly) + 0.5f;
-  const float hz = (float)(m[7] * vps + lz) + 0.5f;
-  float P[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float* T = tcg + 4 * i;
-    P[i] = __fmaf_rn(hz, T[2] * p.voxel_size,
-                     __fmaf_rn(hx, T[0] * p.voxel_size, hy * (T[1] * p.voxel_size))) +
-           T[3];
-  }
-  const float pX = P[0], pY = P[1], pZ = P[2];
+// Where a camera-frame point samples the atlas, for the block of meta row
+// [v0, u0_atlas, real, lvl, u0_level, ...]: `ok` (in front of the camera,
+// inside the image and its level), `inwin` (inside the block's window: then
+// the sample is atlas[a] and atlas[plane + a]) and zsafe.
+struct Pixel {
+  bool ok, inwin;
+  int a;
+  float zsafe;
+};
+
+__device__ __forceinline__ Pixel proj_pixel(float pX, float pY, float pZ,
+                                            int v0, int u0a, int lvl, int u0l,
+                                            const ProjParams& p) {
+  Pixel r;
   const bool zok = pZ > 1e-3f;
-  const float zsafe = fmaxf(pZ, 1e-3f);
-  const float u = p.fx * pX / zsafe + p.cx;
-  const float v = p.fy * pY / zsafe + p.cy;
+  r.zsafe = fmaxf(pZ, 1e-3f);
+  const float u = p.fx * pX / r.zsafe + p.cx;
+  const float v = p.fy * pY / r.zsafe + p.cy;
   const int ui = (int)floorf(u + 0.5f);
   const int vi = (int)floorf(v + 0.5f);
   const bool in_img = zok && ui >= 0 && ui < p.width && vi >= 0 && vi < p.height;
@@ -72,20 +65,28 @@ __device__ __forceinline__ VoxelTerms proj_voxel_terms(
   const int vl = clampi(vi, 0, p.height - 1) >> lvl;
   const bool lvl_ok = ul < (p.width >> lvl) && vl < (p.height >> lvl);
   const int row = vl - v0, col = ul - u0l;
-  const bool inwin = row >= 0 && row < p.row_window && col >= 0 && col < p.col_window;
-  const size_t plane = (size_t)p.atlas_height * p.atlas_width;
-  const size_t a = inwin ? (size_t)(v0 + row) * p.atlas_width + (u0a + col) : 0;
-  const float depth = inwin ? atlas[a] : 0.f;
-  const int label = (int)rintf(inwin ? atlas[plane + a] : 0.f);
-  r.label = label;
-  r.a = a;
+  r.inwin = row >= 0 && row < p.row_window && col >= 0 && col < p.col_window;
+  r.a = r.inwin ? (v0 + row) * p.atlas_width + (u0a + col) : 0;
+  r.ok = in_img && lvl_ok;
+  return r;
+}
 
-  // update_terms_from_sample (ops/projective.py).
+// update_terms_from_sample (ops/projective.py) for the sample (depth,
+// label) of a camera-frame point.
+__device__ __forceinline__ VoxelTerms proj_terms(float pX, float pY, float pZ,
+                                                 const Pixel& px, float depth,
+                                                 int label,
+                                                 const ProjParams& p) {
+  VoxelTerms r;
+  r.upd = false;
+  r.label = label;
+  r.a = px.a;
   const bool depth_ok = depth > 0.f && depth < 1.0e6f * 0.5f;
+  const bool finite = depth_ok && px.ok;
+  if (!finite) return r;  // no update, whatever the rest gives
   const float t_v = sqrtf(__fmaf_rn(pZ, pZ, __fmaf_rn(pX, pX, pY * pY)));
-  const float ray_norm = t_v * depth / zsafe;
+  const float ray_norm = t_v * depth / px.zsafe;
   const float sdf = ray_norm - t_v;
-  const bool finite = depth_ok && in_img && lvl_ok;
   const bool too_close = ray_norm < p.min_ray;
   const bool beyond = ray_norm > p.max_ray;
   const bool clearing = beyond && p.allow_clear;
@@ -116,13 +117,52 @@ __device__ __forceinline__ VoxelTerms proj_voxel_terms(
   return r;
 }
 
-// The sampled colour of a voxel (mip_ops.unpack_color): r, g, b as floats.
+// Voxel `vox` of the block of meta row `m` ([v0, u0_atlas, real, lvl,
+// u0_level, bx, by, bz]); tcg is T_C_G's top 3 x 4 rows.
+__device__ __forceinline__ VoxelTerms proj_voxel_terms(
+    const int* __restrict__ m, int vox, const float* __restrict__ tcg,
+    const float* __restrict__ atlas, const ProjParams& p) {
+  if (m[2] == 0) {  // padding row: no update
+    VoxelTerms r;
+    r.upd = false;
+    r.label = 0;
+    return r;
+  }
+  const int vps = p.vps;
+  const int lx = vox / (vps * vps), ly = (vox / vps) % vps, lz = vox % vps;
+  // Voxel center in voxel units, projected as h_j * (T_ij * voxel_size):
+  // the reassociated, fused form of ops/projective.py centers_to_camera.
+  const float hx = (float)(m[5] * vps + lx) + 0.5f;
+  const float hy = (float)(m[6] * vps + ly) + 0.5f;
+  const float hz = (float)(m[7] * vps + lz) + 0.5f;
+  float P[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float* T = tcg + 4 * i;
+    P[i] = __fmaf_rn(hz, T[2] * p.voxel_size,
+                     __fmaf_rn(hx, T[0] * p.voxel_size, hy * (T[1] * p.voxel_size))) +
+           T[3];
+  }
+  const Pixel px = proj_pixel(P[0], P[1], P[2], m[0], m[1], m[3], m[4], p);
+  const size_t plane = (size_t)p.atlas_height * p.atlas_width;
+  const float depth = px.inwin ? atlas[px.a] : 0.f;
+  const int label = (int)rintf(px.inwin ? atlas[plane + px.a] : 0.f);
+  return proj_terms(P[0], P[1], P[2], px, depth, label, p);
+}
+
+// The sampled colour of a voxel (mip_ops.unpack_color) from its atlas
+// words (rg, b): r, g, b as floats.
+__device__ __forceinline__ void proj_rgb(float rg_word, float b_word,
+                                         float rgb[3]) {
+  const float rg = rintf(rg_word);
+  rgb[0] = floorf(rg / 256.f);
+  rgb[1] = rg - rgb[0] * 256.f;
+  rgb[2] = rintf(b_word);
+}
+
 __device__ __forceinline__ void proj_voxel_rgb(const float* __restrict__ atlas,
                                                size_t a, const ProjParams& p,
                                                float rgb[3]) {
   const size_t plane = (size_t)p.atlas_height * p.atlas_width;
-  const float rg = rintf(atlas[2 * plane + a]);
-  rgb[0] = floorf(rg / 256.f);
-  rgb[1] = rg - rgb[0] * 256.f;
-  rgb[2] = rintf(atlas[3 * plane + a]);
+  proj_rgb(atlas[2 * plane + a], atlas[3 * plane + a], rgb);
 }

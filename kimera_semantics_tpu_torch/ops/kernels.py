@@ -658,7 +658,9 @@ def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
     count * 32 + label; exact while count < 2^19); d_wc (K, 3, V3), or None
     when the colour channels take no update (only ColorMode.COLOR blends
     measured colour). Only nonzero deltas are read-modify-written: adding
-    +0.0 changes no value the grid holds."""
+    +0.0 changes no value the grid holds. On the card V3 must be a multiple
+    of 8 and every tensor start on a 16-byte boundary (the kernel moves
+    16-byte grid words and bulk-copies whole delta rows)."""
     if _on_cpu(wsum):
         return block_rmw_add_plain(wsum, wsdf, sem_count, sem_delta, wcolor,
                                    slots, d_w, d_wsdf, d_cnt, d_lab, d_wc,
@@ -667,8 +669,8 @@ def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
     rows, V3, L = _check_channels(wsum, wsdf, sem_count, sem_delta, wcolor,
                                   dev)
     K = d_w.shape[0]
-    if K % 8 or rows % 8:
-        raise ValueError("block_rmw_add: K and the channel rows must be "
+    if K % 8 or rows % 8 or V3 % 8:
+        raise ValueError("block_rmw_add: K, the channel rows and V3 must be "
                          "multiples of 8")
     mode = _sem_mode(L, d_sem, sem_packed_ranks)
     _check(slots, "slots", torch.int32, (K,), dev)
@@ -691,12 +693,15 @@ def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
         fn = _build.bind("block_rmw", "ksd_block_rmw_add",
                          (ctypes.c_void_p,) * 12 + (RmwParams,
                                                     ctypes.c_void_p))
+        args = (wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w, d_wsdf,
+                d_cnt, d_lab if mode == "onehot" else None, sem_ptr, d_wc)
+        # 16-byte grid words and bulk copies of whole rows
+        if any(x is not None and x.data_ptr() % 16 for x in args):
+            raise ValueError("block_rmw_add: every tensor must start on a "
+                             "16-byte boundary")
         ptr = lambda x: _ptr(x) if x is not None else None  # noqa: E731
-        _raise_on(fn(*(ptr(x) for x in (wsum, wsdf, sem_count, sem_delta,
-                                         wcolor, slots, d_w, d_wsdf, d_cnt,
-                                         d_lab if mode == "onehot" else None,
-                                         sem_ptr, d_wc)),
-                     p, _stream(dev)), "block_rmw_add")
+        _raise_on(fn(*(ptr(x) for x in args), p, _stream(dev)),
+                  "block_rmw_add")
         launches["block_rmw_add"] += 1
     return wsum, wsdf, sem_count, sem_delta, wcolor
 

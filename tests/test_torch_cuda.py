@@ -271,21 +271,25 @@ def test_slot_resolve(cuda, n_frames, gate_near):
 
 
 def rmw_inputs(mode, color=False, V3=512, L=21, K=64, capacity=256, P=4,
-               seed=0):
+               seed=0, trash=None, distinct=True):
     """K5's inputs in numpy: grid channels (capacity + 8 rows), a
-    group-aligned slot list whose last two tiles are trash tiles, and
-    sparse deltas; the semantic votes as one label per voxel (onehot),
-    counts per label (dense) or P rank planes of count * 32 + label with
-    distinct labels per voxel (packed)."""
+    group-aligned slot list whose trash tiles sit at the tile positions
+    `trash` (default: the last two tiles), and sparse deltas; the semantic
+    votes as one label per voxel (onehot), counts per label (dense) or P
+    rank planes of count * 32 + label (packed), each rank empty with its own
+    probability (so an empty rank may sit below a full one), with distinct
+    labels per voxel unless `distinct` is false."""
     rng = np.random.RandomState(seed)
     rows = capacity + 8
     f = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)  # noqa
     chans = [f(0, 3, rows, V3), f(-1, 1, rows, V3),
              rng.randint(0, 9, (rows, V3)).astype(np.float32),
              f(-6, 0, L, rows, V3), f(0, 500, 3, rows, V3)]
-    n_live = K // 8 - 2
-    groups = np.concatenate([rng.choice(capacity // 8, n_live, replace=False),
-                             [capacity // 8] * 2])
+    n_tiles = K // 8
+    trash = (n_tiles - 2, n_tiles - 1) if trash is None else tuple(trash)
+    live = rng.choice(capacity // 8, n_tiles - len(trash), replace=False)
+    groups = np.full(n_tiles, capacity // 8)
+    groups[[i for i in range(n_tiles) if i not in trash]] = live
     slots = (np.repeat(groups, 8) * 8 + np.tile(np.arange(8), K // 8)
              ).astype(np.int32)
     hit = rng.rand(K, V3) < 0.3
@@ -300,7 +304,8 @@ def rmw_inputs(mode, color=False, V3=512, L=21, K=64, capacity=256, P=4,
         d_sem = np.where(rng.rand(L, K, V3) < 0.05,
                          rng.randint(1, 5, (L, K, V3)), 0).astype(np.float32)
     else:
-        labs = np.argsort(rng.rand(L, K, V3), axis=0)[:P]
+        labs = (np.argsort(rng.rand(L, K, V3), axis=0)[:P] if distinct
+                else rng.randint(0, L, (P, K, V3)))
         cnt = np.where(rng.rand(P, K, V3) < np.linspace(0.6, 0.1, P)[:, None,
                                                                      None],
                        rng.randint(1, 40, (P, K, V3)), 0)
@@ -346,6 +351,143 @@ def test_block_rmw_wide(cuda):
                    1.7, 4, cuda)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,P,V3,trash,distinct", [
+    ("packed", 1, 512, (0, 3, 5), True),
+    ("packed", 8, 4096, (1, 4), True),
+    ("packed", 8, 512, (2,), False),       # ranks of one voxel share labels
+    ("packed", 21, 512, (0, 6), True),     # P == L: the packed override
+    ("packed", 5, 512, (3,), True),        # the generic rank count
+    ("dense", 21, 4096, (5,), True),
+    ("dense", 4, 512, (0,), True),         # the generic label count
+    ("onehot", 0, 32768, (0, 2), True)])
+@pytest.mark.parametrize("color", [False, True])
+def test_block_rmw_edges(cuda, mode, P, V3, trash, distinct, color):
+    """K5's redesign against its plain version, every channel bit for bit:
+    trash tiles between live ones, 1 to 21 packed ranks with empty ranks
+    below full ones (and repeated labels), dense counts, V3 from 512 to
+    32768 (one bulk-copy chunk to 64 per tile)."""
+    L = 4 if (mode, P) == ("dense", 4) else 21
+    kw = dict(K=32, capacity=32) if V3 == 32768 else {}
+    chans, slots, deltas, d_sem = rmw_inputs(
+        mode, color, V3=V3, L=L, P=max(P, 1), trash=trash,
+        distinct=distinct, **kw)
+    if mode == "packed" and P > 1:     # an empty rank below a full one
+        assert ((d_sem[0] == 0) & (d_sem[-1] > 0)).any()
+    P = P if mode == "packed" else 0
+    got = rmw_call(kernels.block_rmw_add, chans, slots, deltas, d_sem, 1.7,
+                   P, cuda)
+    ref = rmw_call(kernels.block_rmw_add_plain, chans, slots, deltas, d_sem,
+                   1.7, P, cuda)
+    assert not torch.equal(ref[3], torch.from_numpy(chans[3]).to(cuda))
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def test_block_rmw_persistent_grid(cuda):
+    """61 tiles of 8 chunks (488 work items, more than the persistent grid
+    of a 132-SM card holds and no multiple of it), three of them trash
+    tiles spread through the list: every channel bit for bit."""
+    chans, slots, deltas, d_sem = rmw_inputs(
+        "packed", True, V3=4096, K=8 * 61, capacity=512, P=8,
+        trash=(5, 29, 60))
+    got = rmw_call(kernels.block_rmw_add, chans, slots, deltas, d_sem, 1.3,
+                   8, cuda)
+    ref = rmw_call(kernels.block_rmw_add_plain, chans, slots, deltas, d_sem,
+                   1.3, 8, cuda)
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def block_config(vps, **kw):
+    """config() on vps^3 blocks (capacity 512)."""
+    cfg = config(**kw)
+    return dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, voxels_per_side=vps, block_capacity=512))
+
+
+def apply_both(cfg, fslots, meta, T_C_G, atlas, plan, region, dev):
+    """K3 and its plain version on two copies of one nonzero grid."""
+    lk = sem_ops.make_likelihood_cached(cfg).delta
+    color = cfg.semantic.color_mode == tcfg.ColorMode.COLOR
+    grids = []
+    for fn in (kernels.projective_apply_fused,
+               kernels.projective_apply_fused_plain):
+        g = blocks.create(cfg, device=dev)
+        g.wsum += 0.5
+        g.sem_delta -= 0.25
+        fn(g.wsum, g.wsdf, g.sem_count, g.sem_delta, g.wcolor, fslots, meta,
+           T_C_G, atlas, cfg, INTR, plan, lk, with_color=color,
+           region=region)
+        grids.append([getattr(g, c) for c in ("wsum", "wsdf", "sem_count",
+                                              "sem_delta", "wcolor")])
+    return grids
+
+
+@pytest.mark.parametrize("vps", [16, 4])
+@pytest.mark.parametrize("color", [False, True])
+@pytest.mark.parametrize("region", ["all", "carve"])
+def test_apply_block_shapes(cuda, vps, color, region):
+    """K3 on 16^3 blocks (the instance every configuration takes) and on
+    4^3 (the instance for any other vps), colour mode and the carve region
+    included: every channel bit for bit."""
+    cfg = block_config(vps, color=color)
+    f, plan, atlas, fcoords, fslots, freal = frame_list(cfg, cuda)
+    T_C_G = transforms.inverse(f.T_G_C)
+    meta = kernels.block_meta(fcoords, freal, T_C_G, INTR, plan,
+                              cfg.grid.block_size)
+    got, ref = apply_both(cfg, fslots, meta, T_C_G, atlas, plan, region,
+                          cuda)
+    assert not torch.equal(ref[1], blocks.create(cfg, device=cuda).wsdf)
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), got, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("vps", [8, 16])
+@pytest.mark.parametrize("case", ["all_trash", "all_padding", "trash_first"])
+def test_apply_skips_trash_and_padding(cuda, vps, case):
+    """K3 leaves the grid untouched where every group of the list is the
+    trash group (its rows real) or every row is padding, and with the
+    trash tiles moved ahead of the live ones equals its plain version on
+    the live rows (the plain version also adds real rows of a trash tile
+    into the trash rows, which no reader uses)."""
+    cfg = block_config(vps)
+    f, plan, atlas, fcoords, fslots, freal = frame_list(cfg, cuda)
+    cap = cfg.grid.block_capacity
+    trash_rows = cap + torch.arange(8, device=cuda, dtype=torch.int32)
+    if case == "all_trash":
+        fslots = trash_rows.repeat(fslots.shape[0] // 8)
+        freal = torch.ones_like(freal)
+    elif case == "all_padding":
+        freal = torch.zeros_like(freal)
+    else:
+        tile_live = (fslots[::8] // 8) != cap // 8
+        order = torch.cat([torch.nonzero(~tile_live)[:, 0],
+                           torch.nonzero(tile_live)[:, 0]])
+        assert 0 < int(tile_live.sum()) < len(order)
+        rows = (order[:, None] * 8 + torch.arange(8, device=cuda)).reshape(-1)
+        fslots, fcoords, freal = fslots[rows], fcoords[rows], freal[rows]
+        freal[:8] = True         # a trash tile with real rows
+    T_C_G = transforms.inverse(f.T_G_C)
+    meta = kernels.block_meta(fcoords, freal, T_C_G, INTR, plan,
+                              cfg.grid.block_size)
+    got, ref = apply_both(cfg, fslots, meta, T_C_G, atlas, plan, "all", cuda)
+    base = blocks.create(cfg, device=cuda)
+    init = (base.wsum + 0.5, base.wsdf, base.sem_count,
+            base.sem_delta - 0.25, base.wcolor)
+    for name, a, b, c in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                              "wcolor"), got, ref, init):
+        if case != "trash_first":
+            assert torch.equal(a, c), name
+        a, b = (a[:, :cap], b[:, :cap]) if a.dim() == 3 else (a[:cap],
+                                                            b[:cap])
+        assert torch.equal(a, b), name
+    if case == "trash_first":
+        assert not torch.equal(got[1], base.wsdf)
 
 
 @pytest.mark.parametrize("model,carve_mode", [

@@ -381,3 +381,87 @@ def test_block_rmw_plain_matches_pallas(mode, color, wide):
                                                               b[:live])
         np.testing.assert_array_equal(b, a, err_msg=name)
     assert not np.array_equal(N(got[3])[:, :live], chans[3][:, :live])
+
+
+@pytest.mark.parametrize("trash,color", [((0, 3, 5), False), ((1, 6), True)])
+def test_block_rmw_plain_matches_pallas_interleaved(trash, color):
+    """The contract K5's redesign is held to: its plain version against the
+    Pallas kernel run interpreted with trash tiles between live ones (not
+    only at the tail), 8 packed ranks of which any may be empty below a
+    full one: the live rows exact."""
+    from test_torch_cuda import rmw_call, rmw_inputs
+    chans, slots, deltas, d_sem = rmw_inputs("packed", color, P=8,
+                                             trash=trash, seed=3)
+    assert ((d_sem[0] == 0) & (d_sem[7] > 0)).any()
+    groups = slots[::8] // 8
+    assert (groups[list(trash)] == chans[0].shape[0] // 8 - 1).all()
+    lk = float(np.float32(1.3862943649291992))
+    d_w, d_wsdf, d_cnt, _, d_wc = deltas
+    K, V3 = d_w.shape
+    ref = pk.block_rmw_add(
+        *(jnp.asarray(a) for a in chans), jnp.asarray(slots),
+        jnp.asarray(d_w), jnp.asarray(d_wsdf), jnp.asarray(d_cnt), None,
+        jnp.asarray(d_wc if color else np.zeros((K, 3, V3), np.float32)),
+        lk_delta=lk, interpret=True, d_sem=jnp.asarray(d_sem),
+        sem_packed_ranks=8)
+    got = rmw_call(kernels.block_rmw_add, chans, slots, deltas, d_sem, lk, 8,
+                   torch.device("cpu"))
+    live = chans[0].shape[0] - 8
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), ref, got):
+        a, b = N(a), N(b)
+        a, b = (a[:, :live], b[:, :live]) if a.ndim == 3 else (a[:live],
+                                                              b[:live])
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    assert not np.array_equal(N(got[3])[:, :live], chans[3][:, :live])
+
+
+def test_apply_plain_matches_fused_pallas_trash_between():
+    """The contract K3's redesign is held to: its plain version against the
+    Pallas fused kernel run interpreted (vps 8) on one frame's list with a
+    trash tile, its rows real, moved between live tiles. The trash group
+    takes no update from the Pallas kernel (the plain version adds its real
+    rows into the trash rows, which no reader uses), so the live rows are
+    compared, with test_apply_plain_matches_fused_pallas's tolerance for the
+    Pallas sampler's bf16 depth split."""
+    cj, ct = configs()
+    fr, plan, atlas = frame_atlas(cj, frame_index=1)
+    tplan = tmip.MipPlan(**plan.__dict__)
+    g = jblocks.create(cj)
+    g, fcoords, fslots, freal = jax.jit(functools.partial(
+        jproj_model.allocate_from_atlas, cfg=cj, intr=INTR, plan=plan))(
+        g, atlas, fr.T_G_C)
+    cap = cj.grid.block_capacity
+    fcoords, fslots, freal = (np.array(a) for a in (fcoords, fslots, freal))
+    tiles = fslots[::8] // 8
+    live = np.nonzero(tiles != cap // 8)[0]
+    dead = np.nonzero(tiles == cap // 8)[0]
+    assert len(live) >= 2 and len(dead) >= 1
+    order = np.concatenate([live[:1], dead[:1], live[1:], dead[1:]])
+    rows = (order[:, None] * 8 + np.arange(8)).reshape(-1)
+    fcoords, fslots, freal = fcoords[rows], fslots[rows], freal[rows]
+    fcoords[8:16] = fcoords[:8]          # the trash tile's rows: real blocks
+    freal[8:16] = freal[:8]
+    assert freal[8:16].any() and (fslots[8:16] // 8 == cap // 8).all()
+    T_C_G = jax.jit(jtr.inverse)(fr.T_G_C)
+    tflat = jnp.zeros((1, 128), jnp.float32).at[0, :12].set(
+        T_C_G[:3, :4].reshape(-1))
+    meta = pk.block_meta(jnp.asarray(fcoords), jnp.asarray(freal), tflat,
+                         INTR, plan, cj.grid.block_size, interpret=True)
+    lk = make_likelihood_cached(cj).delta
+    ref = pk.projective_apply_fused(
+        g.wsum, g.wsdf, g.sem_count, g.sem_delta, g.wcolor,
+        jnp.asarray(fslots), meta, tflat, atlas, cj, INTR, plan, lk_delta=lk,
+        interpret=True)
+    grid = tblocks.create(ct, device="cpu")
+    got = kernels.projective_apply_fused(
+        grid.wsum, grid.wsdf, grid.sem_count, grid.sem_delta, grid.wcolor,
+        T(fslots), T(meta), T(N(T_C_G)), T(atlas), ct, TINTR, tplan, lk)
+    assert N(got[0])[fslots[:8]].any()
+    assert N(got[0])[cap:].any()         # the plain version's trash rows
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), ref, got):
+        a, b = N(a), N(b)
+        sl = (slice(None), slice(0, cap)) if a.ndim == 3 else slice(0, cap)
+        bad = np.abs(b[sl] - a[sl]) > 1e-3 + 1e-3 * np.abs(a[sl])
+        assert bad.mean() < 5e-3, (name, bad.mean())
