@@ -10,8 +10,9 @@ Phases, each of which must complete:
      the static SASS of K3, K4 and K5;
   2. hold each kernel of the projective main path (K1-K3, and K4 at the
      same frame list) against its plain PyTorch version on the card, at
-     the main path's shapes, and time both, and time an empty kernel
-     (csrc/empty.cu) for the launch floor;
+     the main path's shapes, and time both (K1 in its keys-only instance,
+     which the allocation walk runs, and in its full instance), and time
+     an empty kernel (csrc/empty.cu) for the launch floor;
   3. drive the projective main path (models/projective.py integrate_frame)
      at the canonical configuration of bench.py (projective method,
      640x480, 0.05 m voxels, 16^3 blocks) over 4 warm-up and 24 timed
@@ -21,7 +22,10 @@ Phases, each of which must complete:
      device's busy share; re-run the same frames through the plain
      versions on the card and compare the grids block by block; then drive
      them with fused_apply=False (K4 then K5 per frame, K3 never) and hold
-     that grid to the fused one bit for bit;
+     that grid to the fused one bit for bit; then two frames at vps 5 with
+     fused_apply=False and at vps 21 (V3 % 8 != 0: K5's generic instance),
+     each held bit for bit to a plain run on the card, and K5's generic
+     instance timed on K4's deltas;
   4. capture the inputs of the ray integrators' kernels from one frame of
      the fast integrator at bench.py's fast configuration (K1 at voxel
      granularity, K6 slot_resolve_stream, K5 block_rmw_add in packed
@@ -49,7 +53,8 @@ Phases, each of which must complete:
      .ksdv round trip; `sim-eval --preset eval`
      against the JAX package's CPU values;
   8. the rosbag batch slice: K7 add_f32 bit-exact against its plain
-     version and timed beside torch.add; the scatter-strategy profiling
+     version and timed beside torch.add in alternating rounds (median and
+     spread of each); the scatter-strategy profiling
      tool (tools/profile_scatter.py) at its full size with --warm-kernel,
      K7 launched exactly once and every strategy's channels equal to one
      reference indexed add; the fast integrator with scatter_mode "direct"
@@ -168,6 +173,16 @@ def device_events(events):
             and not getattr(e, "is_user_annotation", False)]
 
 
+# A profiler session now and then returns a trace without the device
+# activity of kernels that fn() did launch (seen on the H100 for K7 and for
+# torch.add, a few microseconds each). A trace that shows no span of
+# `symbol` is taken again, up to TRACE_ATTEMPTS traces in all; a kernel
+# that never shows stays a failure. TRACE_RETRIES counts the traces taken
+# again, by symbol, and is printed with the kernels line.
+TRACE_ATTEMPTS = 4
+TRACE_RETRIES = {}
+
+
 def device_time(fn, symbol: str, reps: int):
     """Mean device ms of the CUDA kernel `symbol` per call of fn(), from a
     torch.profiler trace of `reps` calls; None if the trace shows no device
@@ -177,11 +192,14 @@ def device_time(fn, symbol: str, reps: int):
     def run():
         for _ in range(reps):
             fn()
-    spans = [e.time_range.elapsed_us() for e in device_events(trace(run))
-             if symbol in e.name]
-    if not spans or sum(spans) <= 0:
-        return None
-    return sum(spans) / 1e3 / reps
+    for attempt in range(TRACE_ATTEMPTS):
+        if attempt:
+            TRACE_RETRIES[symbol] = TRACE_RETRIES.get(symbol, 0) + 1
+        spans = [e.time_range.elapsed_us() for e in device_events(trace(run))
+                 if symbol in e.name]
+        if spans and sum(spans) > 0:
+            return sum(spans) / 1e3 / reps
+    return None
 
 
 def cold_device_time(fn, symbol: str, reps: int, dev):
@@ -419,6 +437,13 @@ def capture_ray_inputs(fast, kernels, grid, frame, cfg, intr, dev):
         seen["block_rmw_add"][0]
 
 
+def k1_full_bytes(R: int, S: int, MAXR: int) -> int:
+    """Bytes K1's full instance moves: four (3, R) float planes, the
+    weights and the 1-byte flags read; six 4-byte (S, R) planes, the 1-byte
+    valid plane and the (MAXR, R) run keys written."""
+    return 4 * (3 * 4 * R + R) + R + (4 * 6 + 1) * S * R + 4 * MAXR * R
+
+
 def check_outputs(label, got, ref, names, floats):
     """Fail unless kernel and plain outputs agree: ints bit-exact, floats
     within FLOAT_RTOL. Returns the largest float difference."""
@@ -464,8 +489,7 @@ def ray_kernel_checks(kt, frames, dev, report):
         *k1_args), lambda: kernels.dda_job_stream_plain(*k1_args))
     report["dda_job_stream"]["voxel"] = dict(
         err=err, R=R, S=S, MAXR=MAXR, **t,
-        bytes=4 * (3 * 4 * R + 2 * R) + 4 * (7 * S * R + MAXR * R),
-        ops=R * (60 + 40 * S))
+        bytes=k1_full_bytes(R, S, MAXR), ops=R * (60 + 40 * S))
     print(f"[K1 dda_job_stream, voxel granularity] R={R} S={S} MAXR={MAXR}: "
           f"ints bit-exact, float max abs err {err:g}")
 
@@ -716,44 +740,86 @@ def literal32_config(kt, cfg):
         block_capacity=c32.grid.block_capacity))
 
 
-def k4_wide_check(kt, kernels, proj, proj_ops, cfg, intr, frame, dev):
-    """K4 at V3 = 32768 (32^3 literal storage), on one frame's list, then
-    K5 in onehot form on K4's deltas into the freshly allocated grid: the
-    cli_vps32 route's pair. Returns the K4 and K5 report entries."""
+def k4_k5_pair(kernels, proj, proj_ops, c, intr, frame, dev, label,
+               check_k4):
+    """One frame's list on a fresh grid of configuration `c`, K4's deltas
+    (checked and timed against its plain version when `check_k4`), then K5
+    in onehot form on those deltas into the grid: the unfused route's pair.
+    Returns the K4 entry (or None) and the K5 entry."""
     import torch
     from kimera_semantics_tpu_torch.core import transforms
     from kimera_semantics_tpu_torch.grid import blocks
     from kimera_semantics_tpu_torch.ops import mip as mip_ops
     from kimera_semantics_tpu_torch.ops import semantic as sem_ops
-    c32 = literal32_config(kt, cfg)
-    plan = proj.make_plan(c32, intr)
+    plan = proj.make_plan(c, intr)
     atlas = mip_ops.build_atlas(frame.depth, frame.labels, frame.colors,
                                 plan)
-    grid = blocks.create(c32, device=dev)
+    grid = blocks.create(c, device=dev)
     grid, fcoords, fslots, freal = proj.allocate_from_atlas(
-        grid, atlas, frame.T_G_C, c32, intr, plan)
+        grid, atlas, frame.T_G_C, c, intr, plan)
     T_C_G = transforms.inverse(frame.T_G_C)
     meta = kernels.block_meta(fcoords, freal, T_C_G, intr, plan,
-                              c32.grid.block_size)
-    out = k4_check(kernels, proj_ops, "32^3 literal", c32, intr, plan, meta,
-                   fslots, T_C_G, atlas)
+                              c.grid.block_size)
+    out = (k4_check(kernels, proj_ops, label, c, intr, plan, meta, fslots,
+                    T_C_G, atlas) if check_k4 else None)
     # K5 reads only the live tiles (slot group not the trash group); K4
     # leaves the others unwritten.
     d_w, d_wsdf, d_cnt, d_lab, _ = kernels.projective_sample_update(
-        meta, fslots, T_C_G, atlas, c32, intr, plan)
+        meta, fslots, T_C_G, atlas, c, intr, plan)
     rows = (torch.div(fslots, 8, rounding_mode="floor")
-            != c32.grid.block_capacity // 8)
+            != c.grid.block_capacity // 8)
     nz = lambda x: int((x[rows] != 0).sum())  # noqa: E731
-    n_live, V3 = int(rows.sum()), c32.grid.vps3
-    lk = sem_ops.make_likelihood_cached(c32).delta
-    k5 = k5_check(kernels, "onehot, cli_vps32", [getattr(grid, c) for c in
-                                                 CHANNELS],
+    n_live, V3 = int(rows.sum()), c.grid.vps3
+    lk = sem_ops.make_likelihood_cached(c).delta
+    k5 = k5_check(kernels, f"onehot, {label}", [getattr(grid, ch) for ch in
+                                                CHANNELS],
                   fslots, (d_w, d_wsdf, d_cnt), d_lab, None, lk, {}, n_live,
                   4 * n_live * V3 * 4, 8 * nz(d_cnt),
                   8 * (nz(d_w) + nz(d_wsdf) + nz(d_cnt)), 1, dev)
     del grid, d_w, d_wsdf, d_cnt, d_lab
     torch.cuda.empty_cache()
     return out, k5
+
+
+# The unfused route at an odd vps (V3 % 8 != 0, K5's generic instance): vps
+# 5 with fused_apply=False, and vps 21 (V3 9261, past the fused kernel's
+# limit, so unfused whatever fused_apply says); blocks of the canonical
+# 0.8 m, so the frame lists keep the canonical size.
+ODD_VPS = ((5, False), (21, True))
+
+
+def odd_vps_phase(kernels, proj, proj_ops, cfg, intr, frames, dev, launches):
+    """Two projective frames at each ODD_VPS configuration through K1, K2,
+    K4 and K5 (the launches checked), held bit for bit and block by block
+    to a plain run on the card; then K5's generic instance timed on K4's
+    deltas of the first frame. Returns K5's report entries."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    variants = {}
+    for vps, fused in ODD_VPS:
+        c = dataclasses.replace(
+            cfg, grid=dataclasses.replace(cfg.grid, voxels_per_side=vps,
+                                          voxel_size=0.8 / vps),
+            pipeline=dataclasses.replace(cfg.pipeline, fused_apply=fused))
+        tag = f"vps{vps}"
+        grid, counts, ms = drive(proj, c, intr, frames, 0, 2, dev, dict(
+            dda_job_stream=1, block_meta=1, projective_sample_update=1,
+            block_rmw_add=1))
+        launches[tag] = counts
+        ref = blocks.create(c, device=dev)
+        plain_run(kernels, proj, ref, c, intr, frames[:2], dev)
+        _, n_seen, labels = compare_grids(grid, ref, c, CHANNELS, tag)
+        print(f"[{tag}] V3 {c.grid.vps3}, fused_apply={fused}: 2 frames, "
+              f"{ms:.3f} ms/frame host clock; launches {counts}; "
+              f"n_blocks {int(grid.n_blocks)} overflow "
+              f"{int(grid.overflow)}; grid equal to the plain run's bit "
+              f"for bit, block by block; observed voxels {n_seen}, labels "
+              f"{labels}")
+        del grid, ref
+        torch.cuda.empty_cache()
+        _, variants[f"onehot, {tag}, generic"] = k4_k5_pair(
+            kernels, proj, proj_ops, c, intr, frames[0], dev, tag, False)
+    return variants
 
 
 def tsdf_words(vxblx, grid, cfg):
@@ -1019,9 +1085,15 @@ def sim_eval_phase():
     del srv
 
 
+K7_ROUNDS = 7   # alternating K7 / torch.add device timings
+
+
 def k7_check(kernels, dev, report):
     """K7 add_f32 at the probe's shape, (8, 128) float32, bit-exact against
-    its plain version, timed beside torch.add on the same tensors."""
+    its plain version, then timed beside torch.add on the same tensors in
+    K7_ROUNDS alternating rounds (K7, torch.add, K7, ...; each a profiler
+    trace of REPS launches): the medians go to the report, the spreads
+    (max - min over the rounds) are printed beside them."""
     import numpy as np
     import torch
     rng = np.random.RandomState(7)
@@ -1033,16 +1105,30 @@ def k7_check(kernels, dev, report):
     if not torch.equal(got, ref):
         fail(f"K7 add_f32: kernel and plain differ at "
              f"{int((got != ref).sum())} entries")
-    lib = device_time(lambda: torch.add(x, y), "add", REPS)
+    k7 = lambda: kernels.add_f32(x, y)  # noqa: E731
+    lib = lambda: torch.add(x, y)  # noqa: E731
+    rounds = {"k7": [], "torch.add": []}
+    for _ in range(K7_ROUNDS):
+        for key, fn, sym in (("k7", k7, KERNEL_SYMBOLS["add_f32"]),
+                             ("torch.add", lib, "add")):
+            ms = device_time(fn, sym, REPS)
+            if ms is None:
+                fail(f"K7 timing: no device time for {key} in the trace")
+            rounds[key].append(ms)
+    med = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+    spread = {k: max(v) - min(v) for k, v in rounds.items()}
+    t = kernel_times("add_f32", k7, lambda: kernels.add_f32_plain(x, y))
+    t.update(ms=med["k7"], timed_by=f"profiler, median of {K7_ROUNDS} "
+             "alternating rounds")
     report["add_f32"] = dict(
-        err=0.0, **kernel_times("add_f32", lambda: kernels.add_f32(x, y),
-                                lambda: kernels.add_f32_plain(x, y)),
-        library_ms=lib if lib is not None else cuda_time(
-            lambda: torch.add(x, y), REPS),
+        err=0.0, **t, library_ms=med["torch.add"], rounds=rounds,
         # two inputs read and one output written once; one add each
         bytes=3 * 4 * x.numel(), ops=x.numel())
     print(f"[K7 add_f32] (8, 128) float32: bit-exact against x + y; "
-          f"torch.add {report['add_f32']['library_ms']:.5f} ms device")
+          f"{K7_ROUNDS} alternating rounds of {REPS} launches, device ms "
+          f"median [spread]: K7 {med['k7']:.5f} [{spread['k7']:.5f}], "
+          f"torch.add {med['torch.add']:.5f} [{spread['torch.add']:.5f}]; "
+          f"rounds {json.dumps(rounds)}")
 
 
 def scatter_phase(kernels, dev, launches):
@@ -1472,21 +1558,36 @@ def main() -> int:
     jobs = proj.candidate_jobs(atlas, f0.T_G_C, cfg, intr, plan)
     cfg_b, S, origin3, point3, start3, end3, weights, jvalid = jobs
     R = point3.shape[1]
-    out_k = kernels.dda_job_stream(*jobs)
-    out_p = kernels.dda_job_stream_plain(*jobs)
+    # K1 at block granularity: the keys-only instance that the main path
+    # runs, then the full instance at the same shapes.
+    keys_only = lambda fn: fn(*jobs, keys_only=True)  # noqa: E731
+    out_k = keys_only(kernels.dda_job_stream)
+    out_p = keys_only(kernels.dda_job_stream_plain)
     torch.cuda.synchronize()
-    err1 = check_outputs("K1", out_k, out_p, K1_OUTPUTS, ("w", "wsdf", "wc"))
-    MAXR = out_k[6].shape[0]
-    print(f"[K1 dda_job_stream] R={R} S={S} MAXR={MAXR}: ints bit-exact, "
-          f"float max abs err {err1:g}")
+    check_outputs("K1 (keys only)", [out_k[0], out_k[5]],
+                  [out_p[0], out_p[5]], ("key", "valid"), ())
+    if any(x is not None for i, x in enumerate(out_k) if i not in (0, 5)):
+        fail("K1 keys only returned more than key and valid")
+    full_k = kernels.dda_job_stream(*jobs)
+    full_p = kernels.dda_job_stream_plain(*jobs)
+    torch.cuda.synchronize()
+    err1 = check_outputs("K1 (full)", full_k, full_p, K1_OUTPUTS,
+                         ("w", "wsdf", "wc"))
+    MAXR = full_k[6].shape[0]
+    del full_k, full_p
+    print(f"[K1 dda_job_stream] R={R} S={S} MAXR={MAXR}: keys-only and "
+          f"full instances bit-exact (ints), float max abs err {err1:g}")
     report["dda_job_stream"] = dict(
-        err=err1, **kernel_times(
+        err=0.0, **kernel_times(
+            "dda_job_stream", lambda: keys_only(kernels.dda_job_stream),
+            lambda: keys_only(kernels.dda_job_stream_plain)),
+        # inputs: start3, end3 and the 1-byte flags; outputs: the (S, R)
+        # keys and 1-byte valid flags. ops: estimated per ray and step.
+        bytes=4 * 6 * R + R + 5 * S * R, ops=R * (40 + 15 * S),
+        full=dict(err=err1, R=R, S=S, **kernel_times(
             "dda_job_stream", lambda: kernels.dda_job_stream(*jobs),
             lambda: kernels.dda_job_stream_plain(*jobs)),
-        # inputs: 4 (3, R) planes, weights, flags; outputs: 7 (S, R) planes
-        # and the (MAXR, R) run keys. ops: estimated flops per ray and step.
-        bytes=4 * (3 * 4 * R + 2 * R) + 4 * (7 * S * R + MAXR * R),
-        ops=R * (60 + 40 * S))
+            bytes=k1_full_bytes(R, S, MAXR), ops=R * (60 + 40 * S)))
 
     grid = blocks.create(cfg, device=dev)
     keys, kvalid = out_k[0], out_k[5]
@@ -1508,7 +1609,9 @@ def main() -> int:
         err=0.0, **kernel_times(
             "block_meta", lambda: kernels.block_meta(*meta_args),
             lambda: kernels.block_meta_plain(*meta_args)),
-        bytes=K * (12 + 4 + 32) + 48, ops=K * 8 * 40)
+        # coordinates and the 1-byte real flag per block and the 12 pose
+        # words read, the 8-int meta row written
+        bytes=K * (12 + 1 + 32) + 48, ops=K * 8 * 40)
 
     lk = sem_ops.make_likelihood_cached(cfg).delta
 
@@ -1624,6 +1727,10 @@ def main() -> int:
     del grid, ugrid
     torch.cuda.empty_cache()
 
+    # The unfused route at an odd vps: K5's generic instance.
+    k5_generic = odd_vps_phase(kernels, proj, proj_ops, cfg, intr, frames,
+                               dev, launches)
+
     # -- 4. the ray integrators' kernels vs plain, at the fast path's shapes
     ray_kernel_checks(kt, frames, dev, report)
 
@@ -1682,9 +1789,13 @@ def main() -> int:
 
     # -- 7. the serving output: K4 at 32^3, the CLI, the stream server,
     # sim-eval --------------------------------------------------------------
-    k4["32^3 literal"], k5_wide = k4_wide_check(kt, kernels, proj, proj_ops,
-                                                cfg, intr, frames[0], dev)
-    report["block_rmw_add"]["variants"] = {"onehot, cli_vps32": k5_wide}
+    # K4 at V3 = 32768 (32^3 literal storage), then K5 on its deltas: the
+    # cli_vps32 route's pair
+    k4["32^3 literal"], k5_wide = k4_k5_pair(
+        kernels, proj, proj_ops, literal32_config(kt, cfg), intr, frames[0],
+        dev, "32^3 literal", True)
+    report["block_rmw_add"]["variants"] = {"onehot, cli_vps32": k5_wide,
+                                           **k5_generic}
     report["projective_sample_update"] = dict(k4["canonical"], variants=k4)
     cli_phase(kt, kernels, intr, label_map, dev, launches)
     serve_phase(kt, kernels, intr, frames, dev, launches)
@@ -1754,6 +1865,14 @@ def main() -> int:
                  "launch_floor_ms": floor_ms,
                  "launches_by_path": {p: c[name] for p, c in
                                       launches.items()}}
+        if "rounds" in r:
+            entry["rounds"] = r["rounds"]
+        if "full" in r:
+            v = r["full"]
+            entry["full_instance"] = dict(
+                R=v["R"], S=v["S"], max_abs_err=v["err"],
+                **line(name, v, f" (full instance, block walk, R={v['R']} "
+                                f"S={v['S']})"))
         if "voxel" in r:
             v = r["voxel"]
             entry["voxel_granularity"] = dict(
@@ -1770,6 +1889,8 @@ def main() -> int:
                         **line(name, v, f" ({f}, K={v['K']} V3={v['V3']})"))
                 for f, v in r["variants"].items()}
         table.append(entry)
+    print(f"[profiler] traces taken again for want of a kernel's device "
+          f"spans: {json.dumps(TRACE_RETRIES) if TRACE_RETRIES else 'none'}")
     print(json.dumps({"kernels": table}))
     print(smi)
     # The last line: the one card this script used.

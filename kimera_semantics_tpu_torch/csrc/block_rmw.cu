@@ -47,6 +47,10 @@
 // (NVIDIA H100 80GB HBM3, 700 W): 1.5x and 2.1x its byte bound. The
 // dependent grid read-modify-write of each row stays exposed between the
 // ring's refills. PERF.md has the other forms.
+//
+// V3 % 8 != 0 (an odd vps: the unfused projective route at vps 5, or vps 21
+// past the fused kernel's V3 limit) and tensors off a 16-byte boundary take
+// a generic instance (block_rmw_kernel_generic, below) with the same rules.
 #include <stdint.h>
 
 #include "ksd_common.cuh"
@@ -419,6 +423,114 @@ static int launch(const RmwPtrs& a, const RmwParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The generic instance, for any V3 and any alignment (V3 % 8 != 0, for an
+// odd vps, or a tensor that does not start on a 16-byte boundary): no
+// bulk-copy ring and 4-byte grid words, one voxel of one row per thread. A
+// tile's 8 delta rows and its group's 8 grid rows are each one run of 8 V3
+// words, so a work item is a chunk of G_THREADS words of one live tile, and
+// a warp reads and writes neighbouring words. A thread issues all its delta
+// loads, then the loads of the grid words a nonzero delta touches, then the
+// stores. It keeps the fast instances' rules: a persistent grid of CTAs
+// striding over the items, trash tiles skipped where they are found, a
+// read-modify-write only where a delta is nonzero, and the packed votes of
+// a voxel added rank by rank.
+constexpr int G_THREADS = 256;
+
+template <int MODE, bool COLOR>
+__global__ void __launch_bounds__(G_THREADS)
+    block_rmw_kernel_generic(RmwPtrs a, RmwParams p) {
+  const int V3 = p.V3, n = 8 * V3;  // words of a tile
+  const int nch = (n + G_THREADS - 1) / G_THREADS;
+  const int n_items = (p.K / 8) * nch;
+  const size_t plane = (size_t)p.rows_total * V3;  // grid channel plane
+  const size_t dplane = (size_t)p.K * V3;          // d_sem plane
+  const float lk = p.lk;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int tile = item / nch;
+    const int g = floor_div(__ldg(a.slots + 8 * tile), 8);
+    const int e = (item - tile * nch) * G_THREADS + threadIdx.x;
+    if (g < 0 || g >= p.trash_group || e >= n) continue;
+    const size_t src = (size_t)tile * n + e;  // the delta word
+    const size_t dst = (size_t)g * n + e;     // its grid word
+    const float dw = a.d_w[src], ds = a.d_wsdf[src], dc = a.d_cnt[src];
+    int lab = 0;
+    if (MODE == ONEHOT) lab = a.d_lab[src];
+    float dcol[3];
+    size_t col = 0;
+    if (COLOR) {
+      const int r = e / V3;  // the row in the tile: d_wc is (K, 3, V3)
+      col = ((size_t)tile * 8 + r) * 3 * V3 + (e - r * V3);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) dcol[ch] = a.d_wc[col + ch * V3];
+    }
+    float* sd = a.sem_delta + dst;  // this word's place in label plane 0
+    const bool vote = MODE == ONEHOT && dc != 0.f && lab >= 0 && lab < p.L;
+    float ow = 0.f, os = 0.f, oc = 0.f, ov = 0.f, ocol[3];
+    if (dw != 0.f) ow = a.wsum[dst];
+    if (ds != 0.f) os = a.wsdf[dst];
+    if (dc != 0.f) oc = a.sem_count[dst];
+    if (vote) ov = sd[lab * plane];
+    if (COLOR) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        if (dcol[ch] != 0.f) ocol[ch] = a.wcolor[ch * plane + dst];
+    }
+    if (dw != 0.f) a.wsum[dst] = ow + dw;
+    if (ds != 0.f) a.wsdf[dst] = os + ds;
+    if (dc != 0.f) a.sem_count[dst] = oc + dc;
+    if (vote) sd[lab * plane] = ov + dc * lk;
+    if (COLOR) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        if (dcol[ch] != 0.f) a.wcolor[ch * plane + dst] = ocol[ch] + dcol[ch];
+    }
+    if (MODE == DENSE) {
+      for (int l = 0; l < p.P; ++l) {
+        const float d = a.d_sem[l * dplane + src];
+        if (d != 0.f) sd[l * plane] = __fmaf_rn(d, lk, sd[l * plane]);
+      }
+    } else if (MODE == PACKED) {
+      for (int j = 0; j < p.P; ++j) {
+        const float pv = a.d_sem[j * dplane + src];
+        const float c = floorf(pv * 0.03125f);
+        const int l = (int)(pv - 32.f * c);
+        if (c != 0.f && l >= 0 && l < p.L)
+          sd[l * plane] = sd[l * plane] + c * lk;
+      }
+    }
+  }
+}
+
+template <int MODE, bool COLOR>
+static int launch_generic(const RmwPtrs& a, const RmwParams& p,
+                          cudaStream_t stream) {
+  auto kernel = block_rmw_kernel_generic<MODE, COLOR>;
+  static int per_sm = 0, sms = 0;  // per instance, from the occupancy API
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, G_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int n_items = (p.K / 8) * ((8 * p.V3 + G_THREADS - 1) / G_THREADS);
+  const int grid = min(n_items, per_sm * sms);
+  if (grid <= 0) return 0;
+  kernel<<<grid, G_THREADS, 0, stream>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool COLOR>
+static int dispatch_generic(const RmwPtrs& a, const RmwParams& p,
+                            cudaStream_t s) {
+  if (p.sem_mode == ONEHOT) return launch_generic<ONEHOT, COLOR>(a, p, s);
+  if (p.sem_mode == DENSE) return launch_generic<DENSE, COLOR>(a, p, s);
+  return launch_generic<PACKED, COLOR>(a, p, s);
+}
+
 template <bool COLOR>
 static int dispatch(const RmwPtrs& a, const RmwParams& p, cudaStream_t s) {
   if (p.sem_mode == ONEHOT) return launch<ONEHOT, 1, COLOR, C_SPARSE>(a, p, s);
@@ -430,9 +542,11 @@ static int dispatch(const RmwPtrs& a, const RmwParams& p, cudaStream_t s) {
   return launch<PACKED, 0, COLOR, C_DENSE>(a, p, s);
 }
 
-// V3 must be a multiple of 8 and every pointer 16-byte aligned (the wrapper
-// checks both): rows then start on 32-byte boundaries for the bulk copies
-// and the 16-byte grid words.
+static bool unaligned(const void* x) { return ((uintptr_t)x & 15) != 0; }
+
+// The fast instances need V3 % 8 == 0 and every pointer 16-byte aligned
+// (rows then start on 32-byte boundaries for the bulk copies and the
+// 16-byte grid words); anything else takes the generic instance.
 extern "C" int ksd_block_rmw_add(float* wsum, float* wsdf, float* sem_count,
                                  float* sem_delta, float* wcolor,
                                  const int* slots, const float* d_w,
@@ -443,5 +557,12 @@ extern "C" int ksd_block_rmw_add(float* wsum, float* wsdf, float* sem_count,
   const RmwPtrs a{wsum, wsdf, sem_count, sem_delta, wcolor, slots,
                   d_w,  d_wsdf, d_cnt,   d_lab,     d_sem,  d_wc};
   const cudaStream_t s = (cudaStream_t)stream;
+  const void* ptrs[] = {wsum, wsdf, sem_count, sem_delta, wcolor, slots,
+                        d_w,  d_wsdf, d_cnt,   d_lab,     d_sem,  d_wc};
+  bool generic = p.V3 % 8 != 0;
+  for (const void* x : ptrs) generic = generic || unaligned(x);
+  if (generic)
+    return d_wc != nullptr ? dispatch_generic<true>(a, p, s)
+                           : dispatch_generic<false>(a, p, s);
   return d_wc != nullptr ? dispatch<true>(a, p, s) : dispatch<false>(a, p, s);
 }

@@ -70,9 +70,9 @@ def candidates_from_atlas(atlas: torch.Tensor, T_G_C: torch.Tensor,
                           cfg: FusionConfig, intr: PinholeIntrinsics, plan):
     """Candidate block keys for one frame from its mip atlas: (keys (S, R)
     int32, -1 where invalid; valid (S, R) bool). Runs K1 at block
-    granularity."""
+    granularity, keys only."""
     keys, _, _, _, _, valid, _, _ = kernels.dda_job_stream(
-        *candidate_jobs(atlas, T_G_C, cfg, intr, plan))
+        *candidate_jobs(atlas, T_G_C, cfg, intr, plan), keys_only=True)
     return keys, valid
 
 

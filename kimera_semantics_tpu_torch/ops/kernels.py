@@ -59,8 +59,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
             f"(contiguous={t.is_contiguous()})")
 
 
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t):
+    """A tensor's device address for ctypes; None (NULL) for None."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def _stream(device):
@@ -103,7 +104,7 @@ def _dda_consts(cfg: FusionConfig):
 
 
 def dda_job_stream_plain(cfg: FusionConfig, S: int, origin3, point3, start3,
-                         end3, weights, job_valid):
+                         end3, weights, job_valid, keys_only=False):
     """Plain version of K1: traverse_soa's walk plus the stream math."""
     g, t = cfg.grid, cfg.tsdf
     vps, ext = g.voxels_per_side, g.world_extent_blocks
@@ -150,20 +151,24 @@ def dda_job_stream_plain(cfg: FusionConfig, S: int, origin3, point3, start3,
         prev = torch.where(valid, key, prev)
         curr, t_next = raycast.dda_advance(curr, t_next, sign, t_step)
     key, local, w, w_sdf, wc, valid, run_idx = (torch.stack(o) for o in outs)
+    if keys_only:
+        return key, None, None, None, None, valid, None, None
     return key, local, w, w_sdf, wc, valid, run_key, run_idx
 
 
 def dda_job_stream(cfg: FusionConfig, S: int, origin3, point3, start3, end3,
-                   weights, job_valid):
+                   weights, job_valid, keys_only=False):
     """Expand traversal jobs into the per-(step, job) update stream.
 
     origin3/point3/start3/end3: (3, R) float32 world frame; weights (R,)
     float32; job_valid (R,) bool. Returns (key, local, w, wsdf, wc_gate,
     valid, run_key, run_idx): (S, R) planes (key -1 where invalid, valid
-    bool) and the (MAXR, R) / (S, R) block-run streams."""
+    bool) and the (MAXR, R) / (S, R) block-run streams. With `keys_only`
+    (the allocation walk) only key and valid are returned, the others are
+    None; the kernel then reads only start3, end3 and job_valid."""
     if _on_cpu(point3):
         return dda_job_stream_plain(cfg, S, origin3, point3, start3, end3,
-                                    weights, job_valid)
+                                    weights, job_valid, keys_only)
     g, t = cfg.grid, cfg.tsdf
     dev = point3.device
     R = point3.shape[1]
@@ -172,13 +177,14 @@ def dda_job_stream(cfg: FusionConfig, S: int, origin3, point3, start3, end3,
                     ("start3", start3), ("end3", end3)):
         _check(x, name, torch.float32, (3, R), dev)
     _check(weights, "weights", torch.float32, (R,), dev)
-    flags = job_valid.to(torch.int32).contiguous()
-    _check(flags, "job_valid", torch.int32, (R,), dev)
-    i32, f32_ = torch.int32, torch.float32
-    outs = [torch.empty((S, R), dtype=d, device=dev)
-            for d in (i32, i32, f32_, f32_, f32_, i32)]
-    run_key = torch.empty((MAXR, R), dtype=i32, device=dev)
-    run_idx = torch.empty((S, R), dtype=i32, device=dev)
+    _check(job_valid, "job_valid", torch.bool, (R,), dev)
+    plane = lambda d: torch.empty((S, R), dtype=d, device=dev)  # noqa: E731
+    key, valid = plane(torch.int32), plane(torch.bool)
+    local = w = wsdf = wc = run_key = run_idx = None
+    if not keys_only:
+        local, run_idx = plane(torch.int32), plane(torch.int32)
+        w, wsdf, wc = (plane(torch.float32) for _ in range(3))
+        run_key = torch.empty((MAXR, R), dtype=torch.int32, device=dev)
     c = _dda_consts(cfg)
     p = DdaParams(R=R, S=S, maxr=MAXR, vps=g.voxels_per_side,
                   ext=g.world_extent_blocks,
@@ -188,15 +194,16 @@ def dda_job_stream(cfg: FusionConfig, S: int, origin3, point3, start3, end3,
                   f_dropoff_scale=c["dropoff_scale"])
     if R > 0:
         fn = _build.bind("dda", "ksd_dda_job_stream",
-                         (ctypes.c_void_p,) * 6 + (DdaParams,)
+                         (ctypes.c_void_p,) * 6 + (DdaParams, ctypes.c_int)
                          + (ctypes.c_void_p,) * 9)
         _raise_on(fn(*(_ptr(x) for x in (origin3, point3, start3, end3,
-                                          weights, flags)), p,
-                     *(_ptr(x) for x in outs + [run_key, run_idx]),
+                                          weights, job_valid)), p,
+                     int(keys_only),
+                     *(_ptr(x) for x in (key, local, w, wsdf, wc, valid,
+                                         run_key, run_idx)),
                      _stream(dev)), "dda_job_stream")
         launches["dda_job_stream"] += 1
-    key, local, w, wsdf, wc, valid = outs
-    return key, local, w, wsdf, wc, valid.bool(), run_key, run_idx
+    return key, local, w, wsdf, wc, valid, run_key, run_idx
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +231,9 @@ def block_meta(fcoords, freal, T_C_G, intr, plan, block_size):
     dev = fcoords.device
     K = fcoords.shape[0]
     _check(fcoords, "fcoords", torch.int32, (K, 3), dev)
-    real = freal.to(torch.int32).contiguous()
-    _check(real, "freal", torch.int32, (K,), dev)
-    tcg = T_C_G[:3, :4].contiguous()
-    _check(tcg, "T_C_G", torch.float32, (3, 4), dev)
+    _check(freal, "freal", torch.bool, (K,), dev)
+    # the kernel reads rows 0-2 of the pose on the card: its first 12 words
+    _check(T_C_G, "T_C_G", torch.float32, (4, 4), dev)
     meta = torch.empty((K, 8), dtype=torch.int32, device=dev)
     p = MetaParams(K=K, full_level=plan.full_level, width=plan.width,
                    atlas_height=plan.atlas_height,
@@ -241,7 +247,7 @@ def block_meta(fcoords, freal, T_C_G, intr, plan, block_size):
         fn = _build.bind("block_meta", "ksd_block_meta",
                          (ctypes.c_void_p,) * 3 + (MetaParams,)
                          + (ctypes.c_void_p,) * 2)
-        _raise_on(fn(_ptr(fcoords), _ptr(real), _ptr(tcg), p, _ptr(meta),
+        _raise_on(fn(_ptr(fcoords), _ptr(freal), _ptr(T_C_G), p, _ptr(meta),
                      _stream(dev)), "block_meta")
         launches["block_meta"] += 1
     return meta
@@ -658,9 +664,10 @@ def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
     count * 32 + label; exact while count < 2^19); d_wc (K, 3, V3), or None
     when the colour channels take no update (only ColorMode.COLOR blends
     measured colour). Only nonzero deltas are read-modify-written: adding
-    +0.0 changes no value the grid holds. On the card V3 must be a multiple
-    of 8 and every tensor start on a 16-byte boundary (the kernel moves
-    16-byte grid words and bulk-copies whole delta rows)."""
+    +0.0 changes no value the grid holds. On the card, V3 % 8 == 0 with
+    every tensor on a 16-byte boundary takes the fast instances (16-byte
+    grid words, bulk copies of whole delta rows); any other V3 or
+    alignment takes the generic instance (4-byte words)."""
     if _on_cpu(wsum):
         return block_rmw_add_plain(wsum, wsdf, sem_count, sem_delta, wcolor,
                                    slots, d_w, d_wsdf, d_cnt, d_lab, d_wc,
@@ -669,8 +676,8 @@ def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
     rows, V3, L = _check_channels(wsum, wsdf, sem_count, sem_delta, wcolor,
                                   dev)
     K = d_w.shape[0]
-    if K % 8 or rows % 8 or V3 % 8:
-        raise ValueError("block_rmw_add: K, the channel rows and V3 must be "
+    if K % 8 or rows % 8:
+        raise ValueError("block_rmw_add: K and the channel rows must be "
                          "multiples of 8")
     mode = _sem_mode(L, d_sem, sem_packed_ranks)
     _check(slots, "slots", torch.int32, (K,), dev)
@@ -695,12 +702,7 @@ def block_rmw_add(wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w,
                                                     ctypes.c_void_p))
         args = (wsum, wsdf, sem_count, sem_delta, wcolor, slots, d_w, d_wsdf,
                 d_cnt, d_lab if mode == "onehot" else None, sem_ptr, d_wc)
-        # 16-byte grid words and bulk copies of whole rows
-        if any(x is not None and x.data_ptr() % 16 for x in args):
-            raise ValueError("block_rmw_add: every tensor must start on a "
-                             "16-byte boundary")
-        ptr = lambda x: _ptr(x) if x is not None else None  # noqa: E731
-        _raise_on(fn(*(ptr(x) for x in args), p, _stream(dev)),
+        _raise_on(fn(*(_ptr(x) for x in args), p, _stream(dev)),
                   "block_rmw_add")
         launches["block_rmw_add"] += 1
     return wsum, wsdf, sem_count, sem_delta, wcolor

@@ -102,6 +102,48 @@ def test_dda(cuda, carving, dropoff, block_view):
         assert torch.equal(a, b), name
 
 
+def edge_jobs(cfg, dev, R, seed):
+    """dda_jobs with its last R // 16 rays made zero-length (end = start);
+    a tenth of the jobs are invalid."""
+    origin3, point3, start3, end3, weights, valid = dda_jobs(cfg, dev, R=R,
+                                                             seed=seed)
+    n = R // 16
+    if n:
+        end3[:, -n:] = start3[:, -n:]
+    return origin3, point3, start3, end3, weights, valid
+
+
+@pytest.mark.parametrize("vps", [1, 5, 8, 16, 32])
+@pytest.mark.parametrize("keys_only", [False, True])
+@pytest.mark.parametrize("R", [1, 127, 4800, 28672])
+def test_dda_instances(cuda, vps, keys_only, R):
+    """Every vps instance of K1 (1 is the allocation walk's view of 8^3
+    blocks; 5 the generic one), keys only and full, against the plain
+    version bit for bit: S 40 (three 16-step chunks, the last one partial;
+    12 at R 28672), a world extent of about 2 m so that most rays leave it,
+    zero-length rays and invalid jobs."""
+    g = config().grid
+    grid = (dataclasses.replace(g, voxel_size=g.block_size, voxels_per_side=1)
+            if vps == 1 else dataclasses.replace(g, voxels_per_side=vps))
+    grid = dataclasses.replace(
+        grid, world_extent_blocks=max(1, round(2.0 / grid.block_size)))
+    cfg = dataclasses.replace(config(), grid=grid)
+    S = 40 if R < 28672 else 12
+    jobs = edge_jobs(cfg, cuda, R, seed=R + vps)
+    before = kernels.launches["dda_job_stream"]
+    got = kernels.dda_job_stream(cfg, S, *jobs, keys_only=keys_only)
+    assert kernels.launches["dda_job_stream"] == before + 1
+    ref = kernels.dda_job_stream_plain(cfg, S, *jobs, keys_only=keys_only)
+    if R > 1:
+        assert bool(ref[5].any()) and not bool(ref[5].all())
+    for name, a, b in zip(("key", "local", "w", "wsdf", "wc", "valid",
+                           "run_key", "run_idx"), got, ref):
+        if b is None:
+            assert a is None and keys_only, name
+            continue
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("width,height", [(320, 240), (640, 480)])
 def test_block_meta(cuda, width, height):
     intr = kt.PinholeIntrinsics(fx=width / 2, fy=width / 2,
@@ -121,6 +163,57 @@ def test_block_meta(cuda, width, height):
         ref = kernels.block_meta_plain(*args)
         assert torch.equal(got, ref)
     assert len(set(got[:, 3].tolist())) > 1
+
+
+# Blocks of side 1 m seen by the identity camera of EDGE_INTR (640x480,
+# full level 3): the first needs exactly 2^2 (its u span 504 px times the
+# float32 reciprocal of the column threshold 126 is 4.0), the second exactly
+# 2^3 = 2^full_level; the third straddles the camera plane (4 corners in
+# front), the fourth lies behind it, the others in front.
+EDGE_BLOCKS = ((0, 0, 2), (0, 0, 1), (0, 0, 0), (0, 0, -1), (3, 2, 5),
+               (-2, -1, 4), (1, 1, 20), (-5, 3, 3))
+EDGE_INTR = kt.PinholeIntrinsics(fx=1008.0, fy=400.0, cx=0.0, cy=0.0,
+                                 width=640, height=480)
+
+
+@pytest.mark.parametrize("K", [8, 512, 4104])
+def test_block_meta_sizes(cuda, K):
+    """K2 against its plain version bit for bit at K 8, 512 (the main
+    path's) and 4104: the edge blocks under the identity pose, and random
+    blocks around the camera (behind it, straddling its plane, in front)
+    under two orbit poses at 320x240."""
+    rng = np.random.RandomState(K)
+    coords = torch.tensor(np.concatenate(
+        [EDGE_BLOCKS, rng.randint(-6, 7, (K - len(EDGE_BLOCKS), 3))]),
+        dtype=torch.int32, device=cuda)
+    real = torch.tensor(rng.rand(K) > 0.3, device=cuda)
+    intr = kt.PinholeIntrinsics(fx=160.0, fy=160.0, cx=159.5, cy=119.5,
+                                width=320, height=240)
+    cases = [(EDGE_INTR, torch.eye(4, device=cuda), 1.0)] + [
+        (intr, transforms.inverse(torch.tensor(orbit_pose(a), device=cuda)),
+         0.8) for a in (1.3, 4.0)]
+    for it, T_C_G, bs in cases:
+        plan = mip_ops.make_plan(it.height, it.width)
+        before = kernels.launches["block_meta"]
+        got = kernels.block_meta(coords, real, T_C_G, it, plan, bs)
+        assert kernels.launches["block_meta"] == before + 1
+        ref = kernels.block_meta_plain(coords, real, T_C_G, it, plan, bs)
+        assert torch.equal(got, ref)
+        # corners in front of the camera plane, per block
+        off = torch.tensor([[(c >> 2) & 1, (c >> 1) & 1, c & 1]
+                            for c in range(8)], device=cuda)
+        z = ((coords[:, None].float() + off) * bs) @ T_C_G[2, :3] \
+            + T_C_G[2, 3]
+        n_front = (z > 1e-3).sum(dim=1)
+        if K > len(EDGE_BLOCKS) or bs == 1.0:
+            assert bool(((n_front > 0) & (n_front < 8)).any())
+            assert bool((n_front == 0).any())
+    # the edge blocks under the identity pose: levels 2 and 3 (need exactly
+    # 4 and 8), the full-image fallback for the straddling and the behind
+    # block
+    got = kernels.block_meta(coords[:8], real[:8], torch.eye(4, device=cuda),
+                             EDGE_INTR, mip_ops.make_plan(480, 640), 1.0)
+    assert got[:4, 3].tolist() == [2, 3, 3, 3]
 
 
 def frame_list(cfg, dev, frame_index=1):
@@ -315,10 +408,23 @@ def rmw_inputs(mode, color=False, V3=512, L=21, K=64, capacity=256, P=4,
     return chans, slots, (d_w, d_wsdf, d_cnt, d_lab, d_wc), d_sem
 
 
-def rmw_call(fn, chans, slots, deltas, d_sem, lk, P, dev):
-    t = lambda a: None if a is None else torch.tensor(a, device=dev)  # noqa
-    chs = [t(c) for c in chans]
-    fn(*chs, t(slots), *(t(d) for d in deltas), lk, d_sem=t(d_sem),
+def on_card(a, dev, shift=0):
+    """numpy array `a` on the card, `shift` elements past the start of its
+    buffer (shift 1 moves it off every 16-byte boundary)."""
+    if a is None:
+        return None
+    a = torch.from_numpy(np.ascontiguousarray(a))
+    flat = torch.empty(a.numel() + shift, dtype=a.dtype, device=dev)
+    out = flat[shift:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+def rmw_call(fn, chans, slots, deltas, d_sem, lk, P, dev, shift_chans=0,
+             shift_deltas=0):
+    chs = [on_card(c, dev, shift_chans) for c in chans]
+    d = lambda a: on_card(a, dev, shift_deltas)  # noqa: E731
+    fn(*chs, d(slots), *(d(x) for x in deltas), lk, d_sem=d(d_sem),
        sem_packed_ranks=P if d_sem is not None and len(d_sem) == P else 0)
     return chs
 
@@ -400,6 +506,71 @@ def test_block_rmw_persistent_grid(cuda):
     for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
                            "wcolor"), got, ref):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("mode", ["onehot", "dense", "packed"])
+@pytest.mark.parametrize("color", [False, True])
+@pytest.mark.parametrize("V3,shift_chans,shift_deltas", [
+    (125, 0, 0), (9261, 0, 0), (512, 1, 0), (512, 0, 1), (4096, 1, 1)])
+def test_block_rmw_generic(cuda, mode, color, V3, shift_chans, shift_deltas):
+    """K5's generic instance (V3 % 8 != 0: vps 5 and 21; or a tensor off a
+    16-byte boundary) against its plain version, every channel bit for bit,
+    with trash tiles, in all three vote forms."""
+    kw = dict(K=32, capacity=64) if V3 == 9261 else {}
+    chans, slots, deltas, d_sem = rmw_inputs(mode, color, V3=V3, P=4, **kw)
+    P = 4 if mode == "packed" else 0
+    before = kernels.launches["block_rmw_add"]
+    got = rmw_call(kernels.block_rmw_add, chans, slots, deltas, d_sem, 1.3,
+                   P, cuda, shift_chans, shift_deltas)
+    assert kernels.launches["block_rmw_add"] == before + 1
+    if shift_chans:
+        assert got[0].data_ptr() % 16
+    ref = rmw_call(kernels.block_rmw_add_plain, chans, slots, deltas, d_sem,
+                   1.3, P, cuda)
+    assert not torch.equal(ref[3], torch.from_numpy(chans[3]).to(cuda))
+    for name, a, b in zip(("wsum", "wsdf", "sem_count", "sem_delta",
+                           "wcolor"), got, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("vps", [5, 21])
+def test_unfused_odd_vps_matches_plain(cuda, vps):
+    """The unfused projective route at an odd vps (vps 5 with
+    fused_apply=False; vps 21, V3 9261, past the fused kernel's limit):
+    two frames through K4 and K5's generic instance leave the plain
+    versions' grid, bit for bit, block by block."""
+    cfg = config()
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, voxels_per_side=vps,
+                                      block_capacity=512),
+        pipeline=dataclasses.replace(cfg.pipeline, fused_apply=vps == 21))
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = [ds.frame(i) for i in range(2)]
+    g = blocks.create(cfg, device=cuda)
+    kernels.reset_launches()
+    for f in frames:
+        proj.integrate_frame(g, f, cfg, INTR, device=cuda)
+    assert kernels.launches == dict(
+        dda_job_stream=2, block_meta=2, projective_apply_fused=0,
+        projective_sample_update=2, slot_resolve_stream=0, block_rmw_add=2,
+        add_f32=0)
+    ref = blocks.create(cfg, device=cuda)
+    with plain_kernels():
+        for f in frames:
+            proj.integrate_frame(ref, f, cfg, INTR, device=cuda)
+    n = int(g.n_blocks)
+    assert n == int(ref.n_blocks) > 0 and int(g.overflow) == 0
+    coords = g.block_coords[:n]
+    a = blocks.lookup_slots(g, coords, cfg.grid).long()
+    b = blocks.lookup_slots(ref, coords, cfg.grid).long()
+    assert bool((b < cfg.grid.block_capacity).all())
+    assert bool((g.wsum[a] > 0).any())
+    for name in ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor",
+                 "updated"):
+        x, y = getattr(g, name), getattr(ref, name)
+        x, y = (x[:, a], y[:, b]) if x.dim() == 3 else (x[a], y[b])
+        assert torch.equal(x, y), name
 
 
 def block_config(vps, **kw):

@@ -111,6 +111,27 @@ def test_dda_plain_matches_pallas(carving, granularity):
             np.testing.assert_array_equal(b, a, err_msg=name)
 
 
+@pytest.mark.parametrize("carving", [True, False])
+def test_dda_keys_only_matches_pallas(carving):
+    """The allocation walk's keys-only form: the plain version's block keys
+    and validity against the Pallas kernel's at block granularity; the
+    other six outputs are None."""
+    cj, ct = (dataclasses.replace(c, grid=dataclasses.replace(
+        c.grid, voxel_size=c.grid.block_size, voxels_per_side=1))
+        for c in configs(carving=carving))
+    S = 24
+    args = dda_inputs(cj, seed=3)
+    ref = pk.dda_job_stream(cj, S, *(jnp.asarray(a) for a in args),
+                            interpret=True)
+    got = kernels.dda_job_stream(ct, S, *(T(a) for a in args),
+                                 keys_only=True)
+    assert [x is None for x in got] == [False] + [True] * 4 + [False] \
+        + [True] * 2
+    assert got[5].dtype == torch.bool and bool(got[5].any())
+    np.testing.assert_array_equal(N(got[0]), N(ref[0]))
+    np.testing.assert_array_equal(N(got[5]), N(ref[5]).astype(bool))
+
+
 def block_meta_inputs(seed=2, K=128):
     rng = np.random.RandomState(seed)
     fcoords = rng.randint(-6, 6, (K, 3)).astype(np.int32)

@@ -1,8 +1,8 @@
 """The port's projective main path as a whole against the JAX package:
 three frames integrated by both, compared block by block; a grid carried
 across mid-sequence and compared slot for slot; the unfused route (K4 + K5)
-against the JAX package's kernel route, at 32^3 literal storage, and
-against the fused route bit for bit; the port's import hygiene and device
+against the JAX package's kernel route, at 32^3 literal storage, at an
+odd vps, and against the fused route bit for bit; the port's import hygiene and device
 rules (CPU)."""
 
 import dataclasses
@@ -228,6 +228,34 @@ def test_literal_vps32_matches_jax():
     np.testing.assert_allclose(rows(tg, "sem_delta", st),
                                rows(g, "sem_delta", sj), rtol=0, atol=1e-6)
     assert (rows(g, "wsum", sj) > 0).sum() > 500
+
+
+def test_unfused_odd_vps_matches_jax():
+    """vps 5 (V3 125, not a multiple of 8) with fused_apply=False: the
+    port's K4 + K5 route (K5's generic instance on the card) against the
+    JAX package, which routes such V3 to XLA, over two frames, by block
+    coordinate, at the tolerances of test_three_frames_match_jax."""
+    cj, ct = [dataclasses.replace(c, grid=dataclasses.replace(
+        c.grid, voxels_per_side=5)) for c in configs(fused_apply=False)]
+    assert ct.grid.vps3 % 8
+    fs = frames(2)
+    g = jblocks.create(cj)
+    tg = tblocks.create(ct, device="cpu")
+    for f in fs:
+        g = jproj_model.integrate_frame(g, f, cj, INTR)
+        tg = tproj_model.integrate_frame(tg, to_port(f), ct, TINTR,
+                                         device="cpu")
+    assert int(tg.overflow) == int(g.overflow) == 0
+    sj, st = by_coords(g, tg, ct)
+    for name in ("wsum", "wsdf"):
+        np.testing.assert_allclose(rows(tg, name, st), rows(g, name, sj),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)
+    np.testing.assert_array_equal(rows(tg, "sem_count", st),
+                                  rows(g, "sem_count", sj))
+    np.testing.assert_allclose(rows(tg, "sem_delta", st),
+                               rows(g, "sem_delta", sj), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(N(tg.updated)[st], N(g.updated)[sj])
+    assert (rows(g, "wsum", sj) > 0).sum() > 300
 
 
 @pytest.mark.parametrize("color", [False, True])
