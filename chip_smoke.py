@@ -24,8 +24,11 @@ Phases, each of which must complete:
      them with fused_apply=False (K4 then K5 per frame, K3 never) and hold
      that grid to the fused one bit for bit; then two frames at vps 5 with
      fused_apply=False and at vps 21 (V3 % 8 != 0: K5's generic instance),
-     each held bit for bit to a plain run on the card, and K5's generic
-     instance timed on K4's deltas;
+     each held bit for bit to a plain run on the card, and K4's and K5's
+     generic instances checked and timed on the first frame; then the u16
+     wire atlas codec ([wire]): the planes encoded on the card against the
+     CPU's, 2 + 8 frames with wire_sim=True held block by block to a plain
+     run and timed beside the float32 route;
   4. capture the inputs of the ray integrators' kernels from one frame of
      the fast integrator at bench.py's fast configuration (K1 at voxel
      granularity, K6 slot_resolve_stream, K5 block_rmw_add in packed
@@ -373,22 +376,23 @@ def compare_grids(grid, ref, cfg, exact, label):
     return worst, int(seen.sum()), sorted(set(labs[seen].tolist()))
 
 
-def drive(model, cfg, intr, frames, warm, n, dev, expect):
+def drive(model, cfg, intr, frames, warm, n, dev, expect, **frame_kw):
     """Integrate frames[:warm], then time frames[warm:warm + n] on the
     host clock (ending in a synchronize) with every launch count set to 0
     just before; fail unless the counts equal `expect` (per frame) and no
-    block overflowed. Returns (grid, counts, ms per frame)."""
+    block overflowed. `frame_kw` goes to every integrate_frame call.
+    Returns (grid, counts, ms per frame)."""
     import torch
     from kimera_semantics_tpu_torch.grid import blocks
     from kimera_semantics_tpu_torch.ops import kernels
     grid = blocks.create(cfg, device=dev)
     for f in frames[:warm]:
-        model.integrate_frame(grid, f, cfg, intr, device=dev)
+        model.integrate_frame(grid, f, cfg, intr, device=dev, **frame_kw)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     for f in frames[warm:warm + n]:
-        model.integrate_frame(grid, f, cfg, intr, device=dev)
+        model.integrate_frame(grid, f, cfg, intr, device=dev, **frame_kw)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / n
     counts = dict(kernels.launches)
@@ -791,11 +795,12 @@ ODD_VPS = ((5, False), (21, True))
 def odd_vps_phase(kernels, proj, proj_ops, cfg, intr, frames, dev, launches):
     """Two projective frames at each ODD_VPS configuration through K1, K2,
     K4 and K5 (the launches checked), held bit for bit and block by block
-    to a plain run on the card; then K5's generic instance timed on K4's
-    deltas of the first frame. Returns K5's report entries."""
+    to a plain run on the card; then K4's generic instance checked and
+    timed on the first frame's list, and K5's generic instance on its
+    deltas. Returns K4's and K5's report entries."""
     import torch
     from kimera_semantics_tpu_torch.grid import blocks
-    variants = {}
+    k4, variants = {}, {}
     for vps, fused in ODD_VPS:
         c = dataclasses.replace(
             cfg, grid=dataclasses.replace(cfg.grid, voxels_per_side=vps,
@@ -817,9 +822,67 @@ def odd_vps_phase(kernels, proj, proj_ops, cfg, intr, frames, dev, launches):
               f"{labels}")
         del grid, ref
         torch.cuda.empty_cache()
-        _, variants[f"onehot, {tag}, generic"] = k4_k5_pair(
-            kernels, proj, proj_ops, c, intr, frames[0], dev, tag, False)
-    return variants
+        k4[tag], variants[f"onehot, {tag}, generic"] = k4_k5_pair(
+            kernels, proj, proj_ops, c, intr, frames[0], dev, tag, True)
+    return k4, variants
+
+
+WIRE_WARM, WIRE_FRAMES = 2, 8   # [wire]: warm-up and timed frames
+
+
+def wire_phase(kernels, proj, mip_ops, cfg, intr, frames, dev, launches):
+    """The u16 wire atlas codec on the card: the first frame's atlas
+    encoded there equals the same atlas encoded on the CPU plane for plane
+    (dtype and value), and decodes alike; then WIRE_WARM + WIRE_FRAMES
+    canonical projective frames with integrate_frame(..., wire_sim=True)
+    (K1-K3 once per frame, timed on the host clock beside the float32
+    route on the same frames), the grid held block by block to a plain run
+    with wire_sim=True (counts and label planes exactly, floats within
+    FLOAT_RTOL) and shown to differ from the float32 route's."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    plan = proj.make_plan(cfg, intr)
+    f0 = frames[0]
+    atlas = mip_ops.build_atlas(f0.depth, f0.labels, f0.colors, plan)
+    card = mip_ops.wire_encode(atlas, cfg)
+    cpu = mip_ops.wire_encode(atlas.cpu(), cfg)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            fail(f"wire: plane {i} encoded on the card differs from the CPU's")
+    if not torch.equal(mip_ops.atlas_from_wire(card, cfg).cpu(),
+                       mip_ops.atlas_from_wire(cpu, cfg)):
+        fail("wire: the atlas decoded on the card differs from the CPU's")
+    wire_bytes = sum(x.numel() * x.element_size() for x in card)
+    n = WIRE_WARM + WIRE_FRAMES
+    expect = dict(dda_job_stream=1, block_meta=1, projective_apply_fused=1)
+    grid, counts, wms = drive(proj, cfg, intr, frames[:n], WIRE_WARM,
+                              WIRE_FRAMES, dev, expect, wire_sim=True)
+    launches["wire"] = counts
+    f32, _, fms = drive(proj, cfg, intr, frames[:n], WIRE_WARM,
+                        WIRE_FRAMES, dev, expect)
+    ref = blocks.create(cfg, device=dev)
+    plain_run(kernels, proj, ref, cfg, intr, frames[:n], dev, wire_sim=True)
+    worst, n_seen, labels = compare_grids(grid, ref, cfg,
+                                          ("sem_count", "sem_delta"), "wire")
+    del ref
+    g = cfg.grid
+    coords = grid.block_coords[:int(grid.n_blocks)]
+    s_w = blocks.lookup_slots(grid, coords, g).long()
+    s_f = blocks.lookup_slots(f32, coords, g).long()
+    both = s_f < g.block_capacity
+    moved = max_abs_err(grid.wsdf[s_w[both]], f32.wsdf[s_f[both]])
+    if moved == 0.0:
+        fail("wire: the grid equals the float32 route's (no codec applied)")
+    print(f"[wire] {WIRE_FRAMES} frames with wire_sim=True: {wms:.3f} "
+          f"ms/frame host clock, float32 route {fms:.3f} ms/frame on the same "
+          f"frames; launches {counts}; planes encoded on the card equal the "
+          f"CPU's ({wire_bytes} B a frame against "
+          f"{atlas.numel() * atlas.element_size()} B of float32 atlas); grid "
+          f"equal to the plain run's (counts and label planes exact, float "
+          f"max abs {worst:g}), wsdf up to {moved:g} from the float32 "
+          f"route's; observed voxels {n_seen}, labels {labels}")
+    del grid, f32
+    torch.cuda.empty_cache()
 
 
 def tsdf_words(vxblx, grid, cfg):
@@ -1464,14 +1527,14 @@ def bag_icp_phase(kt, kernels, intr, dev, launches):
     torch.cuda.empty_cache()
 
 
-def plain_run(kernels, model, grid, cfg, intr, frames, dev):
+def plain_run(kernels, model, grid, cfg, intr, frames, dev, **frame_kw):
     """The frames through `model` with every kernel's plain version on the
     card; fails if a kernel launched."""
     import torch
     kernels.reset_launches()
     with plain_kernels(kernels):
         for f in frames:
-            model.integrate_frame(grid, f, cfg, intr, device=dev)
+            model.integrate_frame(grid, f, cfg, intr, device=dev, **frame_kw)
     torch.cuda.synchronize()
     if any(kernels.launches.values()):
         fail("the plain reference run launched a kernel")
@@ -1518,8 +1581,8 @@ def main() -> int:
                 if ("registers" in line or "spill" in line
                         or "Compiling entry" in line):
                     print(f"[build] {name}: {line.strip()}")
-    # Static SASS of the redesigned kernels and of K4, which shares K3's
-    # per-voxel code (tools/sass_stats.py).
+    # Static SASS of the redesigned per-voxel kernels K3, K4 and K5, every
+    # instance (tools/sass_stats.py).
     from kimera_semantics_tpu_torch.tools import sass_stats
     for name in ("proj_apply", "proj_sample", "block_rmw"):
         for fn, st in sass_stats.stats(paths[name]).items():
@@ -1728,8 +1791,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # The unfused route at an odd vps: K5's generic instance.
-    k5_generic = odd_vps_phase(kernels, proj, proj_ops, cfg, intr, frames,
-                               dev, launches)
+    k4_odd, k5_generic = odd_vps_phase(kernels, proj, proj_ops, cfg, intr,
+                                       frames, dev, launches)
+    k4.update(k4_odd)
+
+    # The u16 wire atlas codec: wire_sim=True on the canonical frames.
+    wire_phase(kernels, proj, mip_ops, cfg, intr, frames, dev, launches)
 
     # -- 4. the ray integrators' kernels vs plain, at the fast path's shapes
     ray_kernel_checks(kt, frames, dev, report)

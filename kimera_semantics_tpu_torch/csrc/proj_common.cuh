@@ -2,10 +2,9 @@
 // K3 (proj_apply.cu, added into the grid in place) and K4 (proj_sample.cu,
 // written out as delta planes), so both run the same arithmetic: the
 // projection of a camera-frame point to its atlas pixel (proj_pixel) and the
-// update terms of a sample (proj_terms). K4 reaches them through
-// proj_voxel_terms, one voxel at a time; K3 (proj_apply.cu) computes its
-// voxel coordinates and camera-frame points itself and calls the two
-// pieces for several voxels at once.
+// update terms of a sample (proj_terms). Each kernel computes its voxel
+// coordinates and camera-frame points itself and calls the two pieces for
+// several voxels at once.
 //
 // The TPU kernels (_proj_tile of kimera_semantics_tpu/ops/pallas_kernels.py)
 // sample the atlas window through a bf16 hi/lo one-hot contraction on the
@@ -117,39 +116,6 @@ __device__ __forceinline__ VoxelTerms proj_terms(float pX, float pY, float pZ,
   return r;
 }
 
-// Voxel `vox` of the block of meta row `m` ([v0, u0_atlas, real, lvl,
-// u0_level, bx, by, bz]); tcg is T_C_G's top 3 x 4 rows.
-__device__ __forceinline__ VoxelTerms proj_voxel_terms(
-    const int* __restrict__ m, int vox, const float* __restrict__ tcg,
-    const float* __restrict__ atlas, const ProjParams& p) {
-  if (m[2] == 0) {  // padding row: no update
-    VoxelTerms r;
-    r.upd = false;
-    r.label = 0;
-    return r;
-  }
-  const int vps = p.vps;
-  const int lx = vox / (vps * vps), ly = (vox / vps) % vps, lz = vox % vps;
-  // Voxel center in voxel units, projected as h_j * (T_ij * voxel_size):
-  // the reassociated, fused form of ops/projective.py centers_to_camera.
-  const float hx = (float)(m[5] * vps + lx) + 0.5f;
-  const float hy = (float)(m[6] * vps + ly) + 0.5f;
-  const float hz = (float)(m[7] * vps + lz) + 0.5f;
-  float P[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float* T = tcg + 4 * i;
-    P[i] = __fmaf_rn(hz, T[2] * p.voxel_size,
-                     __fmaf_rn(hx, T[0] * p.voxel_size, hy * (T[1] * p.voxel_size))) +
-           T[3];
-  }
-  const Pixel px = proj_pixel(P[0], P[1], P[2], m[0], m[1], m[3], m[4], p);
-  const size_t plane = (size_t)p.atlas_height * p.atlas_width;
-  const float depth = px.inwin ? atlas[px.a] : 0.f;
-  const int label = (int)rintf(px.inwin ? atlas[plane + px.a] : 0.f);
-  return proj_terms(P[0], P[1], P[2], px, depth, label, p);
-}
-
 // The sampled colour of a voxel (mip_ops.unpack_color) from its atlas
 // words (rg, b): r, g, b as floats.
 __device__ __forceinline__ void proj_rgb(float rg_word, float b_word,
@@ -158,11 +124,4 @@ __device__ __forceinline__ void proj_rgb(float rg_word, float b_word,
   rgb[0] = floorf(rg / 256.f);
   rgb[1] = rg - rgb[0] * 256.f;
   rgb[2] = rintf(b_word);
-}
-
-__device__ __forceinline__ void proj_voxel_rgb(const float* __restrict__ atlas,
-                                               size_t a, const ProjParams& p,
-                                               float rgb[3]) {
-  const size_t plane = (size_t)p.atlas_height * p.atlas_width;
-  proj_rgb(atlas[2 * plane + a], atlas[3 * plane + a], rgb);
 }

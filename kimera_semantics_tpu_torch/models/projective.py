@@ -166,18 +166,24 @@ def apply_frame(grid: VoxelGrid, atlas, T_G_C, fcoords, fslots, freal,
 
 
 def integrate_frame(grid: VoxelGrid, frame: common.Frame, cfg: FusionConfig,
-                    intr: PinholeIntrinsics, device="cuda") -> VoxelGrid:
+                    intr: PinholeIntrinsics, device="cuda",
+                    wire_sim: bool = False) -> VoxelGrid:
     """One full projective frame update. The grid is updated IN PLACE (the
     JAX counterpart donates it) and returned.
 
     `device` defaults to the card and must be where the grid and frame
-    lie; it raises when it names CUDA and no card is present."""
+    lie; it raises when it names CUDA and no card is present. `wire_sim`
+    passes the atlas through the u16 wire codec (ops/mip.py
+    wire_roundtrip_atlas) first: on one device, what every shard sees
+    under the wire protocol."""
     dev = resolve(device)
     check_on(dev, grid=grid.wsum, depth=frame.depth, T_G_C=frame.T_G_C)
     plan = make_plan(cfg, intr)
     with common.stage("atlas"):
         atlas = mip_ops.build_atlas(frame.depth, frame.labels, frame.colors,
                                     plan)
+        if wire_sim:
+            atlas = mip_ops.wire_roundtrip_atlas(atlas, cfg)
     grid, fcoords, fslots, freal = allocate_from_atlas(
         grid, atlas, frame.T_G_C, cfg, intr, plan)
     return apply_frame(grid, atlas, frame.T_G_C, fcoords, fslots, freal, cfg,

@@ -1,11 +1,13 @@
 """Mip-pyramid image atlas for the projective integrator.
 
 Counterpart: kimera_semantics_tpu/ops/mip.py (MipPlan, make_plan,
-level_tables, build_atlas, unpack_color). Depth is MIN-pooled (the nearest
-surface wins); label and color follow the winning pixel, and a tie keeps
-the even pixel. All levels sit side by side at 128-aligned column offsets
-of one (4, atlas_height, atlas_width) float32 atlas, channels
-[depth, label, rg = r*256+g, b]; invalid depth is DEPTH_SENTINEL.
+level_tables, build_atlas, unpack_color, and the u16 wire codec
+wire_depth_max, wire_encode, atlas_from_wire, wire_roundtrip_atlas).
+Depth is MIN-pooled (the nearest surface wins); label and color follow
+the winning pixel, and a tie keeps the even pixel. All levels sit side by
+side at 128-aligned column offsets of one (4, atlas_height, atlas_width)
+float32 atlas, channels [depth, label, rg = r*256+g, b]; invalid depth is
+DEPTH_SENTINEL.
 
 The JAX package selects even and odd pixels with one-hot matmuls because
 strided slices are slow on a TPU; here they are strided slices, which are
@@ -18,6 +20,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from ..core import fp
 
 DEPTH_SENTINEL = 1.0e6
 
@@ -102,6 +106,96 @@ def build_atlas(depth: torch.Tensor, labels: torch.Tensor,
         off = plan.offsets[l]
         atlas[:, :plan.heights[l], off:off + plan.widths[l]] = level
     return atlas
+
+
+# ---------------------------------------------------------------------------
+# The u16 wire codec of the sharded atlas exchange
+# ---------------------------------------------------------------------------
+
+def wire_depth_max(cfg) -> float:
+    """Bound of the fine depth range: max_ray + 2 x truncation. A depth at
+    or past it gives sdf >= truncation for every voxel a frame may update;
+    only the observation weight (1/depth^2) still depends on it, so the
+    codec keeps a coarse far range instead of clipping."""
+    return cfg.tsdf.max_ray_length_m + 2.0 * cfg.tsdf.truncation_distance
+
+
+# Wire depth codes: [0, _WIRE_FINE_CODES) span [0, dmax] linearly (about
+# 0.09 mm a step at 5.2 m); [_WIRE_FINE_CODES, 65534] span (dmax,
+# max(_WIRE_FAR_MAX, 2 dmax)] linearly (about 17 mm, read only by the
+# 1/depth^2 carve weight); 65535 marks an invalid depth. Farther depths
+# take the last code.
+_WIRE_FINE_CODES = 60000.0
+_WIRE_FAR_MAX = 100.0
+
+
+def _wire_far_lo(cfg) -> float:
+    return wire_depth_max(cfg)
+
+
+def wire_encode(atlas: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
+    """The built (4, AH, AW) float32 atlas as compact wire planes: (d16,
+    lab) and, in ColorMode.COLOR only, (rg16, b8). d16 is uint16; lab is
+    uint8, or uint16 where num_labels > 256; the semantic modes never read
+    the measured colours, so they ship none. Labels and colours encode
+    losslessly inside their type's range; depth quantizes as the codes
+    above say, the invalid sentinel kept.
+
+    Each value is clamped to its type's range before the cast: the JAX
+    package's cast saturates there (a label of 300 becomes 255 in uint8),
+    where torch's float-to-integer cast would wrap."""
+    from ..config import ColorMode
+    dmax = wire_depth_max(cfg)
+    d = atlas[0]
+    valid = d < DEPTH_SENTINEL
+    far_hi = max(_WIRE_FAR_MAX, dmax * 2.0)
+    q_fine = torch.round(torch.clamp(d, 0.0, dmax)
+                         * ((_WIRE_FINE_CODES - 1.0) / dmax))
+    q_far = torch.round((torch.clamp(d, dmax, far_hi) - dmax)
+                        * ((65534.0 - _WIRE_FINE_CODES) / (far_hi - dmax))
+                        ) + _WIRE_FINE_CODES
+    q = torch.where(d <= dmax, q_fine, q_far)
+    d16 = torch.where(valid, q, 65535.0).to(torch.uint16)
+
+    def cast(x, dtype, top):
+        return torch.clamp(torch.round(x), 0, top).to(dtype)
+    wide = cfg.grid.num_labels > 256
+    planes = [d16, cast(atlas[1], torch.uint16 if wide else torch.uint8,
+                        65535 if wide else 255)]
+    if cfg.semantic.color_mode == ColorMode.COLOR:
+        planes.append(cast(atlas[2], torch.uint16, 65535))
+        planes.append(cast(atlas[3], torch.uint8, 255))
+    return tuple(planes)
+
+
+def atlas_from_wire(planes, cfg) -> torch.Tensor:
+    """The wire planes decoded to the (4, AH, AW) float32 atlas, element
+    by element (no pyramid rebuilt): every shard that decodes one encoded
+    atlas gets the same atlas. The planes widen to float32 first (torch's
+    uint16 has casts but no comparisons)."""
+    dmax = wire_depth_max(cfg)
+    far_hi = max(_WIRE_FAR_MAX, dmax * 2.0)
+    d16 = planes[0].to(torch.float32)
+    d_fine = d16 * (dmax / (_WIRE_FINE_CODES - 1.0))
+    # dmax + (d16 - fine codes) * step, rounded once as XLA:CPU's fused
+    # multiply-add rounds it inside the JAX package's jit (core/fp.py).
+    d_far = fp.fma(d16 - _WIRE_FINE_CODES,
+                   fp.f32((far_hi - dmax) / (65534.0 - _WIRE_FINE_CODES)),
+                   fp.f32(dmax))
+    d = torch.where(d16 >= 65535.0, DEPTH_SENTINEL,
+                    torch.where(d16 < _WIRE_FINE_CODES, d_fine, d_far))
+    lab = planes[1].to(torch.float32)
+    if len(planes) > 2:
+        rg, b = planes[2].to(torch.float32), planes[3].to(torch.float32)
+    else:
+        rg, b = torch.zeros_like(d), torch.zeros_like(d)
+    return torch.stack([d, lab, rg, b])
+
+
+def wire_roundtrip_atlas(atlas: torch.Tensor, cfg) -> torch.Tensor:
+    """decode(encode(atlas)): the atlas every shard sees under the u16
+    wire."""
+    return atlas_from_wire(wire_encode(atlas, cfg), cfg)
 
 
 def level_tables(plan: MipPlan, device="cpu"):

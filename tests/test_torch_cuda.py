@@ -11,6 +11,7 @@ multiply-adds at the same places), so every output must be bit-identical.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -25,7 +26,7 @@ from kimera_semantics_tpu_torch.grid import hash as bhash
 from kimera_semantics_tpu_torch.io.dataset import SyntheticDataset
 from kimera_semantics_tpu_torch.models import fast, merged
 from kimera_semantics_tpu_torch.models import projective as proj
-from kimera_semantics_tpu_torch.ops import carve
+from kimera_semantics_tpu_torch.ops import _build, carve
 from kimera_semantics_tpu_torch.ops import integrate
 from kimera_semantics_tpu_torch.ops import kernels
 from kimera_semantics_tpu_torch.ops import mip as mip_ops
@@ -733,6 +734,95 @@ def test_sample_update(cuda, kw, region):
             assert a is None and not color, name
             continue
         assert torch.equal(a[live], b[live]), name
+
+
+def sample_into(outs, meta, slots, T_C_G, atlas, cfg, plan, color, region):
+    """K4's C entry into caller-made outputs (d_w, d_wsdf, d_cnt, d_lab,
+    d_wc or None), so a test sees which words it writes and can hand it
+    planes off a 16-byte boundary."""
+    p = kernels._proj_params(cfg, INTR, plan, meta.shape[0],
+                             cfg.grid.num_labels, color, region, 0.0)
+    fn = _build.bind("proj_sample", "ksd_projective_sample_update",
+                     (ctypes.c_void_p,) * 9 + (kernels.ProjParams,
+                                               ctypes.c_void_p))
+    tcg = T_C_G[:3, :4].contiguous()
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    assert fn(*(ptr(x) for x in outs), ptr(slots), ptr(meta), ptr(tcg),
+              ptr(atlas), p, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("vps", [16, 32, 5])
+@pytest.mark.parametrize("color", [False, True])
+@pytest.mark.parametrize("case", ["list", "trash_between", "all_trash",
+                                  "shifted"])
+def test_sample_update_instances(cuda, vps, color, case):
+    """K4's instances (16^3 and 32^3 with 16-byte stores, the generic one
+    at vps 5) against the plain version on the live tiles, bit for bit,
+    colour on and off: on the frame list as built; with a trash tile moved
+    between live tiles; on a list of trash tiles only; and with meta,
+    slots, atlas and the outputs one word off a 16-byte boundary (the
+    generic instance then takes 16^3 and 32^3 too). The trash tiles' words
+    stay unwritten."""
+    cfg = config(color=color)
+    cfg = dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, voxels_per_side=vps, voxel_size=0.8 / vps,
+        block_capacity=512))
+    f, plan, atlas, fcoords, fslots, freal = frame_list(cfg, cuda)
+    cap = cfg.grid.block_capacity
+    tile_live = (fslots[::8] // 8) != cap // 8
+    assert 1 < int(tile_live.sum()) < len(tile_live)
+    if case == "trash_between":
+        live_t = torch.nonzero(tile_live)[:, 0]
+        dead_t = torch.nonzero(~tile_live)[:, 0]
+        order = torch.cat([live_t[:1], dead_t[:1], live_t[1:], dead_t[1:]])
+        rows = (order[:, None] * 8 + torch.arange(8, device=cuda)).reshape(-1)
+        fslots, fcoords, freal = fslots[rows], fcoords[rows], freal[rows]
+        freal[8:16] = True       # the trash tile's rows real
+    elif case == "all_trash":
+        fslots = (cap + torch.arange(8, device=cuda, dtype=torch.int32)
+                  ).repeat(fslots.shape[0] // 8)
+        freal = torch.ones_like(freal)
+    T_C_G = transforms.inverse(f.T_G_C)
+    meta = kernels.block_meta(fcoords, freal, T_C_G, INTR, plan,
+                              cfg.grid.block_size)
+    shift = 1 if case == "shifted" else 0
+    meta_c, slots_c, atlas_c = (on_card(x.cpu().numpy(), cuda, shift)
+                                for x in (meta, fslots, atlas))
+    K, V3 = meta.shape[0], cfg.grid.vps3
+    ref = kernels.projective_sample_update_plain(
+        meta, fslots, T_C_G, atlas, cfg, INTR, plan, with_color=color)
+    fill = lambda a: on_card(a, cuda, shift)  # noqa: E731
+    outs = [fill(np.full((K, V3), np.nan, np.float32)) for _ in range(3)]
+    outs.append(fill(np.full((K, V3), -7, np.int32)))
+    outs.append(fill(np.full((K, 3, V3), np.nan, np.float32)) if color
+                else None)
+    sample_into(outs, meta_c, slots_c, T_C_G, atlas_c, cfg, plan, color,
+                "all")
+    live = (torch.div(fslots, 8, rounding_mode="floor") != cap // 8)
+    for name, a, b in zip(("d_w", "d_wsdf", "d_cnt", "d_lab", "d_wc"), outs,
+                          ref):
+        if b is None:
+            assert a is None and not color, name
+            continue
+        assert torch.equal(a[live], b[live]), name
+        dead = a[~live]
+        untouched = (torch.isnan(dead) if a.dtype == torch.float32
+                     else dead == -7)
+        assert bool(untouched.all()), name
+    if case == "all_trash":
+        assert not bool(live.any())
+    else:
+        assert bool((ref[0][live] != 0).any())
+    if case == "list":
+        before = kernels.launches["projective_sample_update"]
+        got = kernels.projective_sample_update(
+            meta, fslots, T_C_G, atlas, cfg, INTR, plan, with_color=color)
+        assert kernels.launches["projective_sample_update"] == before + 1
+        for a, b in zip(got, outs):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a[live], b[live])
 
 
 def test_unfused_matches_fused(cuda):
