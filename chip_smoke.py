@@ -68,7 +68,21 @@ Phases, each of which must complete:
      tsdf_esdf.vxblx reloading both layers; scan-to-map ICP recovering a
      perturbed held-out view, and the batch again with --enable-icp
      --esdf-every 10;
-  9. report per-stage times, the kernel table (one JSON line), the card's
+  9. the sharded grid, 4 shards on the one card (their times are
+     sequential work, not a multi-card number), 2 steps of 4 frames each:
+     [sharded fast] and [sharded merged] (anti-grazing on, the 4-frame
+     bitmask) at bench.py's settings, each held shard by shard to its own
+     plain run and, with [sharded projective] (float32 and u16 wire), to
+     8 single-device integrate_frame calls (u16: wire_sim=True) on one grid
+     of 16376 blocks, ownership disjoint, launches per step checked;
+     [sharded nccl]: the fast and u16 projective steps with every gather
+     through a one-process NCCL group, bit for bit the in-process runs;
+     [mirror]: MultiHostPipeline with an incremental mesh after each step,
+     the mirror against merge_shards and the mesh against a full
+     extraction; [batched]: fast and merged integrate_frames at B = 8
+     against 8 sequential frames and their plain run, K6 once with 8
+     cubes;
+ 10. report per-stage times, the kernel table (one JSON line), the card's
      name and power limit, and last the one-line JSON result.
 
 Exits non-zero, with no result line, on any failure, including when no
@@ -1527,6 +1541,431 @@ def bag_icp_phase(kt, kernels, intr, dev, launches):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The sharded grid and the batched integrate_frames
+# ---------------------------------------------------------------------------
+
+SHARDS = 4               # [sharded *], [mirror]: shards on the one card
+SHARD_STEPS = 2          # steps of SHARDS frames each
+BATCH = 8                # [batched]: frames per integrate_frames call
+# The sharded and batched grids against single-device and sequential
+# integrate_frame calls: the JAX package's own bound between those forms
+# (tests/test_sharding.py, tests/test_models.py), floats summed in another
+# order and grouping.
+SHARDED_TOL = 1e-4
+# The single-device references hold SHARDS x 4096 blocks less one tile
+# group: at 16384 rows the (voxel, label) key of the ray integrators' segment
+# reduce no longer fits int32 and they would take the plain scatter tail,
+# where the shards take the staged route.
+SINGLE_CAPACITY = SHARDS * 4096 - 8
+
+
+def with_capacity(cfg, capacity):
+    return dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, block_capacity=capacity))
+
+
+def with_pipeline(cfg, **kw):
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, **kw))
+
+
+def sharded_launches(method, cfg, d):
+    """Launches per step of a d-shard step on one card: per shard its own
+    frame's allocation walk (K1 keys only) and, per frame and shard, the
+    ownership-filtered dense apply (K2, K3) where free space is carved
+    densely; per shard and gathered stream K1 at voxel granularity and,
+    on the staged route, K5 (the sharded ray steps resolve slots by hash,
+    no K6; multi-frame anti-grazing takes the plain tail)."""
+    ag = cfg.tsdf.enable_anti_grazing
+    dense = method == "projective" or (
+        cfg.tsdf.carve_mode == "projective" and not (method == "merged"
+                                                     and ag))
+    out = dict(dda_job_stream=d if dense else 0,
+               block_meta=d * d if dense else 0,
+               projective_apply_fused=d * d if dense else 0)
+    if method != "projective":
+        streams = 1 if cfg.tsdf.carve_mode == "projective" and not (
+            method == "merged" and ag) else 2
+        out["dda_job_stream"] += d * streams
+        if not (method == "merged" and ag):
+            out["block_rmw_add"] = d
+    return out
+
+
+def run_sharded(step, sg, frames, cfg, intr, mesh, kernels, expect, label):
+    """SHARD_STEPS steps of SHARDS frames each into `sg`, each timed on
+    the host clock (ending in a synchronize) with every launch count set
+    to 0 just before; fails unless the counts equal `expect` per step.
+    Returns (ms per step, the counts of the last step)."""
+    import torch
+    from kimera_semantics_tpu_torch.models.common import Frame
+    ms = []
+    for s in range(SHARD_STEPS):
+        batch = Frame.stack(frames[s * SHARDS:(s + 1) * SHARDS])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        step(sg, batch, cfg, intr, mesh)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        counts = dict(kernels.launches)
+        want = {k: expect.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"{label} step {s}: launches {counts}, expected {want}")
+    return ms, counts
+
+
+def step_busy(fn):
+    """(host ms, device busy ms, "kernel device ms" text) of one traced
+    call of fn()."""
+    t = {}
+
+    def run():
+        t0 = time.perf_counter()
+        fn()
+        import torch
+        torch.cuda.synchronize()
+        t["ms"] = 1e3 * (time.perf_counter() - t0)
+    events = trace(run)
+    dev = device_events(events)
+    per = {k: sum(e.time_range.elapsed_us() for e in dev if sym in e.name)
+           / 1e3 for k, sym in KERNEL_SYMBOLS.items() if k != "empty"}
+    return t["ms"], busy_ms(events), ", ".join(
+        f"{k} {v:.5f}" for k, v in per.items() if v > 0)
+
+
+def compare_to_single(sg, single, cfg, scfg, label):
+    """Each shard's blocks against the single-device grid by coordinate,
+    within SHARDED_TOL; the shards' blocks disjoint and together the single
+    grid's; no overflow. Returns the largest channel difference."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    over = sum(int(g.overflow) for g in sg)
+    if over or int(single.overflow):
+        fail(f"{label}: overflow {over} (shards), {int(single.overflow)} "
+             "(single device)")
+    total, seen, worst = 0, set(), 0.0
+    for s, g in enumerate(sg):
+        nb = int(g.n_blocks)
+        coords = g.block_coords[:nb]
+        for c in map(tuple, coords.cpu().tolist()):
+            if c in seen:
+                fail(f"{label}: block {c} allocated on two shards")
+            seen.add(c)
+        s_sh = blocks.lookup_slots(g, coords, cfg.grid).long()
+        s_si = blocks.lookup_slots(single, coords, scfg.grid).long()
+        if bool((s_si >= scfg.grid.block_capacity).any()):
+            fail(f"{label}: shard {s} holds a block the single grid lacks")
+        for c in CHANNELS:
+            a, b = getattr(g, c), getattr(single, c)
+            a, b = (a[:, s_sh], b[:, s_si]) if a.dim() == 3 else \
+                (a[s_sh], b[s_si])
+            if not bool(torch.isclose(a, b, rtol=SHARDED_TOL,
+                                      atol=SHARDED_TOL).all()):
+                fail(f"{label} shard {s} {c}: differs from the single-device "
+                     f"grid by up to {max_abs_err(a, b):g}")
+            worst = max(worst, max_abs_err(a, b))
+        total += nb
+    if total != int(single.n_blocks) or total == 0:
+        fail(f"{label}: shards hold {total} blocks, the single-device grid "
+             f"{int(single.n_blocks)}")
+    return worst
+
+
+def single_device(model, cfg, intr, frames, dev, counter_of=None,
+                  **frame_kw):
+    """frames through `model` one integrate_frame at a time on one grid;
+    returns (grid, host ms per frame). With `counter_of`, frame i starts
+    from frame_counter counter_of(i): a shard's counter counts its own
+    frames, and the fast band's thinning salt reads it."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    grid = blocks.create(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        if counter_of is not None:
+            grid.frame_counter = torch.full_like(grid.frame_counter,
+                                                 counter_of(i))
+        model.integrate_frame(grid, f, cfg, intr, device=dev, **frame_kw)
+    torch.cuda.synchronize()
+    return grid, 1e3 * (time.perf_counter() - t0) / len(frames)
+
+
+def sharded_phase(kernels, frames, dev, launches, smi, label, method, cfg,
+                  intr, model, plain=True, **single_kw):
+    """[sharded fast|merged|projective]: SHARDS shards on the one card,
+    SHARD_STEPS steps, held to its own plain run shard by shard and to
+    single-device integrate_frame calls. Returns the sharded grid."""
+    import torch
+    from kimera_semantics_tpu_torch.parallel import sharding
+    mesh = sharding.make_mesh(devices=[dev] * SHARDS)
+    step = (sharding.integrate_frames_sharded_projective
+            if method == "projective" else
+            lambda *a: sharding.integrate_frames_sharded(*a, method=method))
+    expect = sharded_launches(method, cfg, SHARDS)
+    sg = sharding.create_sharded(cfg, mesh)
+    ms, counts = run_sharded(step, sg, frames, cfg, intr, mesh, kernels,
+                             expect, label)
+    launches[label] = counts
+    n = SHARDS * SHARD_STEPS
+    # One more step on a copy of the first step's grids, traced, for the
+    # device's busy time.
+    from kimera_semantics_tpu_torch.models.common import Frame
+    tg = sharding.create_sharded(cfg, mesh)
+    step(tg, Frame.stack(frames[:SHARDS]), cfg, intr, mesh)
+    t_ms, busy, per = step_busy(lambda: step(
+        tg, Frame.stack(frames[SHARDS:2 * SHARDS]), cfg, intr, mesh))
+    del tg
+    print(f"[{label}] {SHARDS} shards on one card, {SHARD_STEPS} steps of "
+          f"{SHARDS} frames: host ms/step {', '.join(f'{m:.3f}' for m in ms)}"
+          f" ({ms[-1] / SHARDS:.3f} ms/frame in the last step; the shards "
+          f"run one after another: not a multi-card time); traced step "
+          f"{t_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / t_ms:.4f} (kernel device ms: {per}); launches per "
+          f"step {counts}; n_blocks "
+          f"{[int(g.n_blocks) for g in sg]} overflow "
+          f"{sum(int(g.overflow) for g in sg)} dropped_rays "
+          f"{sum(int(g.dropped_rays) for g in sg)} ({smi})")
+    if plain:
+        ref = sharding.create_sharded(cfg, mesh)
+        kernels.reset_launches()
+        with plain_kernels(kernels):
+            for s in range(SHARD_STEPS):
+                step(ref, Frame.stack(frames[s * SHARDS:(s + 1) * SHARDS]),
+                     cfg, intr, mesh)
+        torch.cuda.synchronize()
+        if any(kernels.launches.values()):
+            fail("the plain reference run launched a kernel")
+        worst = 0.0
+        for s in range(SHARDS):
+            w, _, _ = compare_grids(sg[s], ref[s], cfg, ("sem_count",),
+                                    f"{label} shard {s}")
+            worst = max(worst, w)
+        del ref
+        torch.cuda.empty_cache()
+        print(f"[{label} reference] plain run: every shard the same block "
+              f"coordinates and counters, counts exact, floats within "
+              f"{FLOAT_RTOL:g} relative (max abs {worst:g})")
+    scfg = with_capacity(cfg, SINGLE_CAPACITY)
+    single, sms = single_device(model, scfg, intr, frames[:n], dev,
+                                counter_of=lambda i: i // SHARDS,
+                                **single_kw)
+    worst = compare_to_single(sg, single, cfg, scfg, label)
+    print(f"[{label} single] {n} integrate_frame calls on one grid of "
+          f"{SINGLE_CAPACITY} blocks, frame i from frame_counter i // "
+          f"{SHARDS} as on its shard ({sms:.3f} ms/frame host clock): the "
+          f"same {int(single.n_blocks)} blocks, disjoint over the shards; "
+          f"channels within {SHARDED_TOL:g} (max abs {worst:g}); overflow 0")
+    del single
+    torch.cuda.empty_cache()
+    return sg
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_phase(kernels, frames, dev, runs, smi):
+    """[sharded nccl]: the sharded fast and projective (u16 wire) steps
+    again with every gather through a one-process NCCL group (bool flags
+    and uint16 planes as bytes), held bit for bit, block by block, to the
+    in-process runs."""
+    import torch
+    import torch.distributed as dist
+    from kimera_semantics_tpu_torch.parallel import sharding
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = sharding.make_mesh(devices=[dev] * SHARDS)
+        if mesh.group is None:
+            fail("[sharded nccl]: the mesh did not take the process group")
+        for label, (method, cfg, intr, ref) in runs.items():
+            step = (sharding.integrate_frames_sharded_projective
+                    if method == "projective" else
+                    lambda *a, m=method: sharding.integrate_frames_sharded(
+                        *a, method=m))
+            sg = sharding.create_sharded(cfg, mesh)
+            ms, _ = run_sharded(step, sg, frames, cfg, intr, mesh, kernels,
+                                sharded_launches(method, cfg, SHARDS),
+                                f"nccl {label}")
+            for s in range(SHARDS):
+                compare_grids(sg[s], ref[s], cfg, CHANNELS,
+                              f"[sharded nccl] {label} shard {s}")
+            print(f"[sharded nccl] {label}: {SHARD_STEPS} steps with the "
+                  "gathers through NCCL, host ms/step "
+                  f"{', '.join(f'{m:.3f}' for m in ms)}; every shard bit "
+                  f"for bit the in-process run's, block by block ({smi})")
+            del sg
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def mirror_phase(kt, frames, dev, cfg, intr, smi):
+    """[mirror]: MultiHostPipeline fast, SHARDS shards on the card, two
+    steps with an incremental mesh update after each: the mirror equals
+    merge_shards and the incremental mesh a full extraction of it."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.models.common import Frame
+    from kimera_semantics_tpu_torch.ops import mesh as mesh_ops
+    from kimera_semantics_tpu_torch.parallel import multihost, sharding
+    lm = kt.LabelColorMap.random(cfg.grid.num_labels)
+    pipe = multihost.MultiHostPipeline(
+        cfg, intr, sharding.make_mesh(devices=[dev] * SHARDS), label_map=lm)
+    ms = []
+    for s in range(SHARD_STEPS):
+        pipe.step(Frame.stack(frames[s * SHARDS:(s + 1) * SHARDS]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = pipe.update_mesh()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    merged, mcfg = sharding.merge_shards(pipe.sgrid, cfg)
+    mirror, gcfg = pipe.mirror.grid, pipe.mirror.cfg
+    nb = int(merged.n_blocks)
+    if int(mirror.n_blocks) != nb or nb == 0:
+        fail(f"[mirror]: {int(mirror.n_blocks)} mirror blocks, {nb} merged")
+    coords = merged.block_coords[:nb]
+    s_m = blocks.lookup_slots(merged, coords, mcfg.grid).long()
+    s_i = blocks.lookup_slots(mirror, coords, gcfg.grid).long()
+    for c in CHANNELS:
+        a, b = getattr(merged, c), getattr(mirror, c)
+        a, b = (a[:, s_m], b[:, s_i]) if a.dim() == 3 else (a[s_m], b[s_i])
+        if not torch.equal(a, b):
+            fail(f"[mirror] {c}: the mirror differs from merge_shards")
+    full = mesh_ops.extract_mesh(mirror, gcfg, label_map=lm)
+    if m.num_triangles != full.num_triangles or m.num_triangles == 0:
+        fail(f"[mirror]: incremental mesh {m.num_triangles} triangles, full "
+             f"extraction {full.num_triangles}")
+    a = np.sort(m.vertices.reshape(-1, 9), axis=0)
+    b = np.sort(full.vertices.reshape(-1, 9), axis=0)
+    if not np.allclose(a, b, atol=1e-5):
+        fail("[mirror]: the incremental mesh's triangles differ from the "
+             "full extraction's")
+    print(f"[mirror] {SHARDS} shards, {SHARD_STEPS} steps with an "
+          f"incremental mesh each ({', '.join(f'{x:.1f}' for x in ms)} ms "
+          f"per mesh update): the mirror equals merge_shards over {nb} "
+          f"blocks, and its {m.num_triangles} incremental triangles a full "
+          f"extraction's ({smi})")
+    del pipe, merged, mirror
+    torch.cuda.empty_cache()
+
+
+def batched_phase(kt, kernels, frames, dev, launches, smi):
+    """[batched]: fast and merged integrate_frames at B = BATCH at bench's
+    settings against BATCH sequential integrate_frame calls and their own
+    plain run, with their launches (one K6 with BATCH cubes, K5 once over
+    BATCH x block_budget staged rows for fast; merged's batched votes take
+    the plain tail), each with BATCH x bench's segment budget."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.models import fast, merged
+    from kimera_semantics_tpu_torch.models.common import Frame
+    batch = Frame.stack(frames[:BATCH])
+    for name, model in (("fast", fast), ("merged", merged)):
+        cfg, intr = ray_config(kt, name)
+        # BATCH frames' (voxel, label) segments meet in one reduce: the
+        # segment budget scales with the frames, as the staged rows do.
+        cfg = with_pipeline(cfg, segment_budget=BATCH
+                            * cfg.pipeline.segment_budget)
+        label = f"batched {name}"
+        expect = dict(dda_job_stream=BATCH + 1, block_meta=BATCH,
+                      projective_apply_fused=BATCH, slot_resolve_stream=1,
+                      block_rmw_add=1 if name == "fast" else 0)
+        warm = blocks.create(cfg, device=dev)
+        model.integrate_frames(warm, batch, cfg, intr, device=dev)
+        del warm
+        grid = blocks.create(cfg, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        model.integrate_frames(grid, batch, cfg, intr, device=dev)
+        torch.cuda.synchronize()
+        bms = 1e3 * (time.perf_counter() - t0) / BATCH
+        counts = dict(kernels.launches)
+        want = {k: expect.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"[{label}]: launches {counts}, expected {want}")
+        launches[label] = counts
+        tgrid = blocks.create(cfg, device=dev)
+        t_ms, busy, per = step_busy(lambda: model.integrate_frames(
+            tgrid, batch, cfg, intr, device=dev))
+        del tgrid
+        ref = blocks.create(cfg, device=dev)
+        with plain_kernels(kernels):
+            model.integrate_frames(ref, batch, cfg, intr, device=dev)
+        torch.cuda.synchronize()
+        worst, _, _ = compare_grids(grid, ref, cfg, ("sem_count",),
+                                    f"[{label}] plain")
+        del ref
+        seq, sms = single_device(model, cfg, intr, frames[:BATCH], dev)
+        if int(seq.n_blocks) != int(grid.n_blocks):
+            fail(f"[{label}]: {int(grid.n_blocks)} blocks, sequential "
+                 f"{int(seq.n_blocks)}")
+        sworst = compare_to_single([grid], seq, cfg, cfg, label)
+        print(f"[{label}] B={BATCH}: {bms:.3f} ms/frame host clock, "
+              f"sequential integrate_frame {sms:.3f} ms/frame (both "
+              "unresolved: the host clock spreads 10-70% between runs); "
+              f"traced call {t_ms:.3f} ms, device busy {busy:.3f} ms, idle "
+              f"share {1 - busy / t_ms:.4f} (kernel device ms: {per}); "
+              f"launches {counts}; n_blocks "
+              f"{int(grid.n_blocks)} overflow {int(grid.overflow)} "
+              f"dropped_rays {int(grid.dropped_rays)}; plain run: counts "
+              f"exact, floats within {FLOAT_RTOL:g} (max abs {worst:g}); "
+              f"sequential: same blocks, channels within {SHARDED_TOL:g} "
+              f"(max abs {sworst:g}) ({smi})")
+        del grid, seq
+        torch.cuda.empty_cache()
+
+
+def parallel_phases(kt, kernels, frames, dev, launches, smi):
+    """The sharded grid ([sharded fast], [sharded merged], [sharded
+    projective], [sharded nccl], [mirror]) and [batched]."""
+    from kimera_semantics_tpu_torch.models import fast, merged
+    from kimera_semantics_tpu_torch.models import projective as proj
+    fcfg, fintr = ray_config(kt, "fast")
+    # The dense carve's atlases as float32: the single-device fast path
+    # reads the unquantized atlas ([sharded projective] holds the u16 wire).
+    fcfg = with_pipeline(fcfg, wire_atlas="f32")
+    sg_fast = sharded_phase(kernels, frames, dev, launches, smi,
+                            "sharded fast", "fast", fcfg, fintr, fast)
+    mcfg, mintr = ray_config(kt, "merged")
+    # Anti-grazing keeps the decimated carve jobs in place of the dense
+    # carve (models/merged.py _projective_carve): bench.py's merged budgets,
+    # sized for the dense carve, drop carve jobs and segments there, so the
+    # carve and segment budgets take room for them (PipelineConfig's
+    # default segment budget).
+    mcfg = with_pipeline(dataclasses.replace(mcfg, tsdf=dataclasses.replace(
+        mcfg.tsdf, enable_anti_grazing=True)), segment_budget=1 << 18,
+        carve_budget=1 << 17)
+    sharded_phase(kernels, frames, dev, launches, smi, "sharded merged",
+                  "merged", mcfg, mintr, merged)
+    pcfg, pintr = canonical(kt)
+    sg_proj = {}
+    for wire in ("f32", "u16"):
+        c = with_pipeline(pcfg, wire_atlas=wire)
+        sg_proj[wire] = sharded_phase(
+            kernels, frames, dev, launches, smi, f"sharded projective {wire}",
+            "projective", c, pintr, proj, plain=False,
+            wire_sim=wire == "u16")
+    del sg_proj["f32"]
+    nccl_phase(kernels, frames, dev, {
+        "fast": ("fast", fcfg, fintr, sg_fast),
+        "projective u16": ("projective", with_pipeline(pcfg,
+                                                       wire_atlas="u16"),
+                           pintr, sg_proj["u16"])}, smi)
+    del sg_fast, sg_proj
+    mirror_phase(kt, frames, dev, fcfg, fintr, smi)
+    batched_phase(kt, kernels, frames, dev, launches, smi)
+
+
 def plain_run(kernels, model, grid, cfg, intr, frames, dev, **frame_kw):
     """The frames through `model` with every kernel's plain version on the
     card; fails if a kernel launched."""
@@ -1875,7 +2314,10 @@ def main() -> int:
     modes_phase(kt, kernels, frames, dev, launches)
     bag_icp_phase(kt, kernels, intr, dev, launches)
 
-    # -- 9. report ----------------------------------------------------------
+    # -- 9. the sharded grid and the batched integrate_frames --------------
+    parallel_phases(kt, kernels, frames, dev, launches, smi)
+
+    # -- 10. report ----------------------------------------------------------
     src, tpu = "kimera_semantics_tpu_torch/csrc/", \
         "kimera_semantics_tpu/ops/pallas_kernels.py:"
     sources = {"dda_job_stream": (src + "dda.cu", tpu + "142"),

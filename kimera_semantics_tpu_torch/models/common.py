@@ -31,6 +31,23 @@ class Frame:
     colors: torch.Tensor     # (H, W, 3) float32 [0, 255]
     T_G_C: torch.Tensor      # (4, 4) float32
 
+    # A batch of frames is a Frame whose tensors carry a leading axis.
+
+    @staticmethod
+    def stack(frames) -> "Frame":
+        return Frame(*(torch.stack([getattr(f, n) for f in frames])
+                       for n in FRAME_FIELDS))
+
+    def at(self, b: int) -> "Frame":
+        """Frame `b` of a batch."""
+        return Frame(*(getattr(self, n)[b] for n in FRAME_FIELDS))
+
+    def to(self, device) -> "Frame":
+        return Frame(*(getattr(self, n).to(device) for n in FRAME_FIELDS))
+
+
+FRAME_FIELDS = ("depth", "labels", "colors", "T_G_C")
+
 
 def _host(x):
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

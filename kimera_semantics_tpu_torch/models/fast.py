@@ -2,7 +2,8 @@
 
 Counterpart: kimera_semantics_tpu/models/fast.py (_dedup_and_compact,
 _band_prepare, _frame_batches, integrate_frame, _maybe_projective_carve,
-FastSemanticTsdfIntegrator, integrate_frames), the capability of
+_projective_carve_batched, FastSemanticTsdfIntegrator, integrate_frames),
+the capability of
 `kimera::FastSemanticTsdfIntegrator`
 (kimera_semantics/src/semantic_tsdf_integrator_fast.cpp): speed first,
 with start-voxel subsampling. Per frame, by TsdfConfig.carve_mode:
@@ -152,18 +153,69 @@ def integrate_frame(grid: VoxelGrid, frame: common.Frame, cfg: FusionConfig,
     return integrate_jobs(grid, cfg, batches, cube_origin=origin)
 
 
+def _projective_carve_batched(grid: VoxelGrid, frames: common.Frame,
+                              cfg: FusionConfig,
+                              intr: PinholeIntrinsics) -> VoxelGrid:
+    """B frames' dense free-space carves, one frame after another (the
+    hash allocation chains through)."""
+    for b in range(frames.depth.shape[0]):
+        grid = _maybe_projective_carve(grid, frames.at(b), cfg, intr)
+    return grid
+
+
+def _cat_jobs(batches):
+    """Per-frame (jobs, step budget) pairs of one kind -> one pair whose
+    jobs concatenate the frames' along the job axis."""
+    return carve_ops.JobBatch(*(
+        torch.cat([getattr(j, f) for j, _ in batches])
+        for f in carve_ops.JOB_FIELDS)), batches[0][1]
+
+
 def integrate_frames(grid: VoxelGrid, frames: common.Frame,
                      cfg: FusionConfig, intr: PinholeIntrinsics,
                      device="cuda") -> VoxelGrid:
-    """Integrate B frames in order, in place. `frames` is a Frame whose
-    tensors carry a leading batch axis (B, ...); the frames run one after
-    another through integrate_frame (the reference's one-stream batched
-    form is not ported yet)."""
-    for b in range(frames.depth.shape[0]):
-        grid = integrate_frame(grid, common.Frame(
-            frames.depth[b], frames.labels[b], frames.colors[b],
-            frames.T_G_C[b]), cfg, intr, device=device)
-    return grid
+    """Batched update, in place: B frames in one update stream. `frames`
+    is a Frame whose tensors carry a leading batch axis (B, ...).
+
+    The B frames' job batches are concatenated per kind (band [, carve],
+    or full) and integrated in one integrate_jobs call, each frame's chunk
+    of the job axis resolving against its own camera cube. Under carve_mode
+    "projective" the dense carves run frame by frame first, then the band
+    prepare of each frame (salt index frame_counter + b). Start-voxel dedup
+    (carve_mode "full") runs per frame in order, threading the approx set
+    as B integrate_frame calls would."""
+    dev = resolve(device)
+    check_on(dev, grid=grid.wsum, depth=frames.depth, T_G_C=frames.T_G_C)
+    B = frames.depth.shape[0]
+    if (cfg.tsdf.carve_mode == "projective"
+            and cfg.tsdf.voxel_carving_enabled):
+        with common.stage("carve"):
+            grid = _projective_carve_batched(grid, frames, cfg, intr)
+        s_band = cfg.pipeline.resolved_band_steps(cfg.grid, cfg.tsdf)
+        with common.stage("band"):
+            bands, origins = [], []
+            for b in range(B):
+                band, origin, drop = _band_prepare(
+                    frames.at(b), cfg, intr, frame_idx=grid.frame_counter + b)
+                grid.dropped_rays = grid.dropped_rays + drop
+                bands.append((band, s_band))
+                origins.append(origin)
+            grid.frame_counter = grid.frame_counter + B
+        return integrate_jobs(grid, cfg, [_cat_jobs(bands)],
+                              cube_origin=torch.stack(origins))
+
+    per_kind, origins = None, []
+    with common.stage("band"):
+        for b in range(B):
+            grid, batches, origin = _frame_batches(grid, frames.at(b), cfg,
+                                                   intr)
+            origins.append(origin)
+            if per_kind is None:
+                per_kind = [[] for _ in batches]
+            for kind, bt in zip(per_kind, batches):
+                kind.append(bt)
+    return integrate_jobs(grid, cfg, [_cat_jobs(k) for k in per_kind],
+                          cube_origin=torch.stack(origins))
 
 
 class FastSemanticTsdfIntegrator:

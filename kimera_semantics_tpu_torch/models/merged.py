@@ -1,8 +1,9 @@
 """Merged semantic TSDF integrator: ray bundling.
 
 Counterpart: kimera_semantics_tpu/models/merged.py (_bundle, _bundle_scan,
-_frame_parts, integrate_frame, MergedSemanticTsdfIntegrator,
-integrate_frames), the capability of `kimera::MergedSemanticTsdfIntegrator`
+_bundle_prepare, _frame_parts, integrate_frame,
+MergedSemanticTsdfIntegrator, integrate_frames), the capability of
+`kimera::MergedSemanticTsdfIntegrator`
 (kimera_semantics/src/semantic_tsdf_integrator_merged.cpp): points are
 binned by destination voxel (bundleRays, _merged.cpp:110-124), each bin
 becomes one weighted-average ray carrying a label histogram (:254-285), and
@@ -31,7 +32,8 @@ from ..ops.integrate import integrate_jobs, integrate_ray_batch
 from ..ops.reduce import (TRASH_KEY, add_sorted_runs, segment_compact_reduce,
                           segmented_scan_sums, stable_compact_order)
 from . import common
-from .fast import _maybe_projective_carve
+from .fast import (_cat_jobs, _maybe_projective_carve,
+                   _projective_carve_batched)
 
 _EPS_WEIGHT = 1e-6  # voxblox kEpsilon gate on point weights
 
@@ -146,27 +148,20 @@ def _projective_carve(cfg: FusionConfig) -> bool:
             and not cfg.tsdf.enable_anti_grazing)
 
 
-def _frame_parts(grid, frame, cfg: FusionConfig, intr: PinholeIntrinsics):
-    """Pass-1 bundling, sparse semantic votes and free-space batches for one
-    frame. Returns (grid, batches, sem_pts, origin, bdest, full_state):
-    `batches` is the integrate_jobs list (band [, carve jobs]), or None in
-    carve_mode "full", whose two passes need full_state. Under carve_mode
-    "projective" the caller carves free space densely (the reference does
-    it here, after the bundling, which reads nothing of the grid)."""
-    (_, pts_G, origin, colors, labels, weights, valid,
-     is_clearing) = common.prepare_points(frame, intr, cfg)
+def _bundle_votes(inputs, cfg: FusionConfig):
+    """Pass-1 bundling of a frame's normal points and its sparse (bundle,
+    label) votes: each nonzero pair votes its count along the merged ray
+    (the histogram of _merged.cpp:254-285 in sparse form). Reads nothing
+    of the grid. Returns (bvalid, bpoint, bweight, bcolor, bdest, sem_pts,
+    n_dropped): bundles beyond max_rays and pairs beyond 2 max_rays are
+    counted in n_dropped."""
+    pts_G, colors, labels, weights, valid, is_clearing = inputs
     R = cfg.pipeline.max_rays
     L = cfg.grid.num_labels
-    inv = 1.0 / cfg.grid.voxel_size
-
     (bvalid, bpoint, bweight, bcolor, seg_s, lab_s, act_s, contrib_s,
      bdest, bin_drop) = _bundle_scan(
         pts_G, weights, colors, labels, valid & ~is_clearing,
-        voxel_size_inv=inv, max_bundles=R)
-    grid.dropped_rays = grid.dropped_rays + bin_drop
-
-    # Votes in sparse-histogram form: each nonzero (bundle, label) pair
-    # votes its count along the merged ray.
+        voxel_size_inv=1.0 / cfg.grid.voxel_size, max_bundles=R)
     n_pts = pts_G.shape[0]
     p_ray = torch.clamp(seg_s, max=R - 1)
     p_valid = (act_s & contrib_s & (seg_s < R) & bvalid[p_ray.long()]
@@ -176,11 +171,51 @@ def _frame_parts(grid, frame, cfg: FusionConfig, intr: PinholeIntrinsics):
     pair_key = torch.where(p_valid, (p_ray << lab_shift) | lab_c, TRASH_KEY)
     pk, (pcounts,), pair_drop = segment_compact_reduce(
         pair_key, (torch.where(p_valid, 1.0, 0.0),), 2 * R, max_run=n_pts)
-    grid.dropped_rays = grid.dropped_rays + pair_drop
     sp_valid = pk != TRASH_KEY
     sp_ray = torch.where(sp_valid, pk >> lab_shift, 0)
     sp_lab = torch.where(sp_valid, pk & ((1 << lab_shift) - 1), 0)
-    sem_pts = (sp_ray, sp_lab, sp_valid, pcounts)
+    return (bvalid, bpoint, bweight, bcolor, bdest,
+            (sp_ray, sp_lab, sp_valid, pcounts), bin_drop + pair_drop)
+
+
+def _band(origin, bvalid, bpoint, bweight, bcolor, cfg: FusionConfig):
+    """The bundles' truncation-band jobs (labels ride the votes)."""
+    R = cfg.pipeline.max_rays
+    dev = bpoint.device
+    return carve_ops.band_jobs(
+        origin[None, :], bpoint, bweight,
+        torch.zeros((R,), dtype=torch.int32, device=dev), bcolor,
+        torch.zeros((R,), dtype=torch.bool, device=dev), bvalid, cfg)
+
+
+def _bundle_prepare(frame, cfg: FusionConfig, intr: PinholeIntrinsics):
+    """The bundled prepare of one frame in carve_mode "projective": the
+    bundling, its votes and the band jobs, reading nothing of the grid.
+    Returns (band_jobs, sem_pts, n_dropped, origin)."""
+    (_, pts_G, origin, colors, labels, weights, valid,
+     is_clearing) = common.prepare_points(frame, intr, cfg)
+    bvalid, bpoint, bweight, bcolor, _, sem_pts, drop = _bundle_votes(
+        (pts_G, colors, labels, weights, valid, is_clearing), cfg)
+    return (_band(origin, bvalid, bpoint, bweight, bcolor, cfg), sem_pts,
+            drop, origin)
+
+
+def _frame_parts(grid, frame, cfg: FusionConfig, intr: PinholeIntrinsics,
+                 apply_proj_carve: bool = True):
+    """Pass-1 bundling, sparse semantic votes and free-space batches for one
+    frame. Returns (grid, batches, sem_pts, origin, bdest, full_state):
+    `batches` is the integrate_jobs list (band [, carve jobs]), or None in
+    carve_mode "full", whose two passes need full_state. Under carve_mode
+    "projective" the dense free-space carve is applied to `grid` here,
+    unless `apply_proj_carve` is False (integrate_frame carves first under
+    its own profiler range; sharded callers run their ownership-filtered
+    carve themselves, parallel/sharding.py)."""
+    (_, pts_G, origin, colors, labels, weights, valid,
+     is_clearing) = common.prepare_points(frame, intr, cfg)
+    R = cfg.pipeline.max_rays
+    bvalid, bpoint, bweight, bcolor, bdest, sem_pts, drop = _bundle_votes(
+        (pts_G, colors, labels, weights, valid, is_clearing), cfg)
+    grid.dropped_rays = grid.dropped_rays + drop
     zlab = torch.zeros((R,), dtype=torch.int32, device=pts_G.device)
     full_state = (pts_G, origin, colors, labels, weights, valid, is_clearing,
                   bvalid, bpoint, bweight, bcolor, zlab)
@@ -190,11 +225,11 @@ def _frame_parts(grid, frame, cfg: FusionConfig, intr: PinholeIntrinsics):
     if not decimate:
         return grid, None, sem_pts, origin, bdest, full_state
 
-    no_clear = torch.zeros((R,), dtype=torch.bool, device=pts_G.device)
-    band = carve_ops.band_jobs(origin[None, :], bpoint, bweight, zlab,
-                               bcolor, no_clear, bvalid, cfg)
+    band = _band(origin, bvalid, bpoint, bweight, bcolor, cfg)
     s_band = cfg.pipeline.resolved_band_steps(cfg.grid, cfg.tsdf)
     if _projective_carve(cfg):
+        if apply_proj_carve:
+            grid = _maybe_projective_carve(grid, frame, cfg, intr)
         return grid, [(band, s_band)], sem_pts, origin, bdest, full_state
     plan = carve_ops.plan_carve(cfg, intr)
     cjobs = carve_ops.carve_jobs(frame.depth, frame.labels, frame.T_G_C,
@@ -218,7 +253,7 @@ def integrate_frame(grid: VoxelGrid, frame: common.Frame, cfg: FusionConfig,
             grid = _maybe_projective_carve(grid, frame, cfg, intr)
     with common.stage("band"):
         grid, batches, sem_pts, origin, bdest, full_state = _frame_parts(
-            grid, frame, cfg, intr)
+            grid, frame, cfg, intr, apply_proj_carve=False)
     (pts_G, origin, colors, labels, weights, valid, is_clearing,
      bvalid, bpoint, bweight, bcolor, zlab) = full_state
     R = cfg.pipeline.max_rays
@@ -248,16 +283,55 @@ def integrate_frame(grid: VoxelGrid, frame: common.Frame, cfg: FusionConfig,
                                ag_own_bundle=False)
 
 
+def batchable(cfg: FusionConfig) -> bool:
+    """Whether integrate_frames takes this configuration in one stream."""
+    return (not cfg.tsdf.enable_anti_grazing
+            and cfg.tsdf.carve_mode in ("decimated", "projective")
+            and cfg.tsdf.voxel_carving_enabled)
+
+
 def integrate_frames(grid: VoxelGrid, frames: common.Frame,
                      cfg: FusionConfig, intr: PinholeIntrinsics,
                      device="cuda") -> VoxelGrid:
-    """Integrate B frames in order, in place, one integrate_frame each
-    (the reference's one-stream batched form is not ported yet)."""
-    for b in range(frames.depth.shape[0]):
-        grid = integrate_frame(grid, common.Frame(
-            frames.depth[b], frames.labels[b], frames.colors[b],
-            frames.T_G_C[b]), cfg, intr, device=device)
-    return grid
+    """Batched update, in place: B frames' band (+ carve) batches
+    concatenated per kind and integrated in one integrate_jobs call. Each
+    frame's (bundle, label) votes ride batch 0 with their ray indices
+    offset by b * max_rays, the frame's place in the concatenation, so the
+    per-frame histogram semantics hold; bundling stays per frame.
+
+    Needs a banded carve mode and no anti-grazing (whose dest sets are per
+    frame): callers integrate frame by frame otherwise (batchable)."""
+    if not batchable(cfg):
+        raise ValueError("batched merged integration needs a banded carve "
+                         "mode and no anti-grazing")
+    dev = resolve(device)
+    check_on(dev, grid=grid.wsum, depth=frames.depth, T_G_C=frames.T_G_C)
+    B = frames.depth.shape[0]
+    R = cfg.pipeline.max_rays
+    parts = []     # per frame: (its [(jobs, step budget), ...], votes, origin)
+    if _projective_carve(cfg):
+        with common.stage("carve"):
+            grid = _projective_carve_batched(grid, frames, cfg, intr)
+        s_band = cfg.pipeline.resolved_band_steps(cfg.grid, cfg.tsdf)
+        with common.stage("band"):
+            for b in range(B):
+                band, sem, drop, origin = _bundle_prepare(frames.at(b), cfg,
+                                                          intr)
+                grid.dropped_rays = grid.dropped_rays + drop
+                parts.append(([(band, s_band)], sem, origin))
+    else:
+        with common.stage("band"):
+            for b in range(B):
+                grid, batches, sem, origin, _, _ = _frame_parts(
+                    grid, frames.at(b), cfg, intr)
+                parts.append((batches, sem, origin))
+    batches = [_cat_jobs([p[0][k] for p in parts])
+               for k in range(len(parts[0][0]))]
+    sem_cat = tuple(torch.cat([
+        p[1][i] + b * R if i == 0 else p[1][i] for b, p in enumerate(parts)])
+        for i in range(4))
+    return integrate_jobs(grid, cfg, batches, sem_points=sem_cat,
+                          cube_origin=torch.stack([p[2] for p in parts]))
 
 
 class MergedSemanticTsdfIntegrator:

@@ -2,8 +2,8 @@
 
 Counterpart: kimera_semantics_tpu/models/projective.py (integrate_frame,
 integrate_frames, candidates_from_atlas, allocate_from_atlas,
-insert_candidates, apply_frame, ProjectiveSemanticTsdfIntegrator). Per
-frame:
+insert_candidates, apply_frame, apply_rows_multi,
+ProjectiveSemanticTsdfIntegrator). Per frame:
 
   1. mip atlas of the depth/label/color images      (ops/mip.py)
   2. allocation: a block-granularity DDA over the atlas level
@@ -38,9 +38,11 @@ from ..grid import hash as bhash
 from ..grid.blocks import VoxelGrid
 from ..ops import kernels
 from ..ops import mip as mip_ops
+from ..ops import projective as proj_ops
 from ..ops import raycast
 from ..ops import semantic as sem_ops
 from ..ops import tsdf as tsdf_ops
+from ..ops.integrate import owned
 from . import common
 
 # Largest vps^3 the fused apply takes, as in the JAX package; larger blocks
@@ -113,10 +115,18 @@ def candidate_jobs(atlas: torch.Tensor, T_G_C: torch.Tensor,
             torch.ones((R,), dtype=torch.float32, device=pts_G.device), valid)
 
 
-def insert_candidates(grid: VoxelGrid, keys, active, cfg: FusionConfig):
+def insert_candidates(grid: VoxelGrid, keys, active, cfg: FusionConfig,
+                      shard=None):
     """Frame-list insert of candidate keys; replaces the grid's hash-table
-    fields. Returns (grid, fcoords, fslots, freal)."""
+    fields. `keys`/`active` may be the raw (S, R) DDA planes or a compact
+    list (bhash.unique_keys). With `shard` = (my, num) only the keys that
+    shard `my` of `num` owns are inserted (the ownership rule of
+    ops/integrate.py, so the sharded ray and projective paths agree on
+    owners). Returns (grid, fcoords, fslots, freal)."""
     g = cfg.grid
+    if shard is not None:
+        my, num = shard
+        active = active & owned(keys, my, num)
     tk, ts, bc, nb, ov, fcoords, fslots, freal = bhash.insert_frame_list(
         grid.table_keys, grid.table_slots, grid.block_coords, grid.n_blocks,
         keys.reshape(-1), active.reshape(-1), g.table_size, g.block_capacity,
@@ -128,11 +138,11 @@ def insert_candidates(grid: VoxelGrid, keys, active, cfg: FusionConfig):
 
 
 def allocate_from_atlas(grid: VoxelGrid, atlas, T_G_C, cfg: FusionConfig,
-                        intr: PinholeIntrinsics, plan):
+                        intr: PinholeIntrinsics, plan, shard=None):
     with common.stage("candidates"):
         keys, valid = candidates_from_atlas(atlas, T_G_C, cfg, intr, plan)
     with common.stage("insert"):
-        return insert_candidates(grid, keys, valid, cfg)
+        return insert_candidates(grid, keys, valid, cfg, shard=shard)
 
 
 def apply_frame(grid: VoxelGrid, atlas, T_G_C, fcoords, fslots, freal,
@@ -162,6 +172,31 @@ def apply_frame(grid: VoxelGrid, atlas, T_G_C, fcoords, fslots, freal,
             kernels.block_rmw_add(*channels, fslots, d_w, d_wsdf, d_cnt,
                                   d_lab, d_wc, lk_delta=lk)
         grid.updated[fslots[freal].long()] = True
+    return grid
+
+
+def apply_rows_multi(grid: VoxelGrid, atlases, T_G_C_all, frame_idx,
+                     fcoords, fslots, freal, cfg: FusionConfig,
+                     intr: PinholeIntrinsics, plan,
+                     region: str = "all") -> VoxelGrid:
+    """Sample + update a mixed-frame row list, in place: row j samples
+    frame frame_idx[j]'s atlas and pose (ops/projective.py
+    voxel_deltas_multi) and its deltas are added by indexed adds. The
+    counterpart of the reference's plain branch of the sharded dense
+    apply, which packs the owned rows of all frames into one row budget;
+    the port's sharded step takes the reference's kernel branch instead
+    (apply_frame once per frame)."""
+    g = cfg.grid
+    d = proj_ops.voxel_deltas_multi(frame_idx, fcoords, freal, atlases,
+                                    T_G_C_all, intr, plan, cfg,
+                                    region=region)
+    rows = fslots[freal].long()
+    for name, key in (("wsum", "w"), ("wsdf", "wsdf"),
+                      ("sem_count", "cnt")):
+        getattr(grid, name).index_add_(0, rows, d[key][freal])
+    grid.sem_delta.index_add_(1, rows, d["sem"][freal].permute(1, 0, 2))
+    grid.wcolor.index_add_(1, rows, d["wcolor"][freal].permute(1, 0, 2))
+    grid.updated[rows] = True
     return grid
 
 

@@ -30,8 +30,10 @@ needed, and `PipelineConfig.use_pallas` has no effect here. The grid's
 channel tensors are updated IN PLACE and the same VoxelGrid object is
 returned with its hash-table and counter fields replaced.
 
-Not ported yet (they raise NotImplementedError): spatial sharding
-(shard_id/num_shards) and multi-frame anti-grazing (ag_frames > 1).
+Spatial sharding (parallel/sharding.py) filters the streams by block
+ownership (`shard_id`/`num_shards`, the owner of a block key being
+mix(key ^ OWNER_SALT) % num_shards) and masks anti-grazing per frame over
+streams that concatenate several frames (`ag_frames`).
 """
 
 from __future__ import annotations
@@ -55,6 +57,17 @@ from .reduce import (TRASH_KEY, SortedUpdates, add_sorted_runs, drop_add_,
 
 # Profiler ranges of the ray path, in order (models/common.py stage).
 STAGES = ("expand", "alloc", "cube", "resolve", "reduce", "stage", "apply")
+
+# Salt of the block-ownership hash, shared by every sharded path
+# (models/projective.py insert_candidates) so they agree on owners.
+OWNER_SALT = 0x2545F491
+
+
+def owned(keys: torch.Tensor, shard_id, num_shards: int) -> torch.Tensor:
+    """Whether shard `shard_id` (an int or a 0-d tensor) owns each int32
+    block key: mix(key ^ OWNER_SALT) % num_shards == shard_id. bhash.mix
+    is non-negative, so the owner is the reference's."""
+    return bhash.mix(keys ^ OWNER_SALT) % num_shards == shard_id
 
 
 @dataclasses.dataclass
@@ -117,22 +130,25 @@ def integrate_jobs(
     (B, 3) = batched frames whose every stream's ray axis splits into B
     equal per-frame chunks. None resolves by hash lookups.
 
+    `shard_id`/`num_shards`: spatial sharding by block-hash ownership
+    (parallel/sharding.py): updates whose block another shard owns are
+    dropped here and applied by that shard. `shard_id` may be an int or a
+    0-d tensor.
+
     `ag_dest_voxels`: the merged integrator's anti-grazing rule
     (_merged.cpp:306-313): traversed voxels that are destination voxels of
     the frame's ray bundles are skipped; with `ag_own_bundle` a batch-0 job
-    may still update its own destination voxel.
+    may still update its own destination voxel. `ag_frames > 1` (sharded
+    merged): the dest list and every stream's job axis concatenate
+    ag_frames equal per-frame chunks, and frame b's steps are masked only
+    by frame b's dests, through an int32 per-voxel frame bitmask
+    (ag_frames <= 32).
 
     `sem_points`: (ray_idx, labels, valid, counts) of shape (P,), weighted
     per-(job, label) semantic votes riding batch 0's geometry (the merged
     integrator's histogram per bundle, in sparse form); batch 0's per-job
     labels should then be uninformative.
     """
-    if shard_id is not None or num_shards != 1:
-        raise NotImplementedError("spatial sharding (shard_id/num_shards) "
-                                  "is not ported yet (slice E)")
-    if ag_frames != 1:
-        raise NotImplementedError("multi-frame anti-grazing (ag_frames > 1) "
-                                  "is not ported yet (slice E)")
     g = cfg.grid
     vps, v3, cap, L = g.voxels_per_side, g.vps3, g.block_capacity, \
         g.num_labels
@@ -142,7 +158,9 @@ def integrate_jobs(
 
     n_frames = (cube_origin.shape[0]
                 if cube_origin is not None and cube_origin.dim() == 2 else 1)
-    staged_ok = n_frames == 1 or sem_points is None
+    # Batched vote dispatches (merged B > 1) and multi-frame anti-grazing
+    # take the plain tail, as in the reference.
+    staged_ok = ag_frames == 1 and (n_frames == 1 or sem_points is None)
     staged_rows = min(cap - (cap % 8), cfg.pipeline.block_budget * n_frames)
 
     with stage("expand"):
@@ -151,6 +169,16 @@ def integrate_jobs(
                 and ag_dest_voxels is None
                 and kernels.cube_lut_supported(cfg)
                 and all(st.local.shape[1] % n_frames == 0 for st in streams))
+    sharded = num_shards > 1 and shard_id is not None
+    if sharded:
+        for st in streams:
+            st.run_key = torch.where(owned(st.run_key, shard_id, num_shards),
+                                     st.run_key, -1)
+            if use_cube:
+                continue  # the cube's cells of other shards hold -1
+            st.step_valid = st.step_valid & owned(st.keys, shard_id,
+                                                  num_shards)
+            _mask_stream(st)
 
     with stage("alloc"):
         alloc_keys = torch.cat([st.run_key.reshape(-1) for st in streams])
@@ -166,7 +194,9 @@ def integrate_jobs(
     touched = []
     if use_cube:
         with stage("cube"):
-            cube_vals, cam_block = frame_cube(grid, cfg, cube_origin)
+            cube_vals, cam_block = frame_cube(
+                grid, cfg, cube_origin,
+                shard_id if sharded else None, num_shards)
         gate_near = cfg.semantic.update_near_surface_only
         with stage("resolve"):
             for st in streams:
@@ -204,11 +234,35 @@ def integrate_jobs(
             dblock, dlin = gblocks.voxel_to_block_local(ag_dest_voxels, vps)
             dslots = gblocks.lookup_slots(grid, dblock, g)
             dkey = torch.where(dslots < cap, dslots * v3 + dlin, n_flat)
-            dest_mask = torch.zeros((n_flat + 1,), dtype=torch.bool,
-                                    device=dkey.device)
-            dest_mask[dkey.long()] = True
+            if ag_frames > 1:
+                # Frame b's steps are masked by frame b's dests only (the
+                # sequential semantics): a per-voxel bitmask of the frames
+                # whose dests hold the voxel. Dests are unique voxels
+                # within a frame, so this add is an exact OR.
+                if ag_frames > 32:
+                    raise ValueError("anti-grazing frame bitmask is int32: "
+                                     f"ag_frames {ag_frames} > 32")
+                M = dkey.shape[0]
+                dframe = torch.arange(M, dtype=torch.int32,
+                                      device=dkey.device) // (M // ag_frames)
+                bits = torch.zeros((n_flat + 1,), dtype=torch.int32,
+                                   device=dkey.device)
+                bits.index_add_(0, dkey.long(),
+                                torch.bitwise_left_shift(
+                                    torch.ones_like(dframe), dframe))
+            else:
+                dest_mask = torch.zeros((n_flat + 1,), dtype=torch.bool,
+                                        device=dkey.device)
+                dest_mask[dkey.long()] = True
             for bi, st in enumerate(streams):
-                hit = dest_mask[st.key.long()]
+                if ag_frames > 1:
+                    R_s = st.key.shape[1]
+                    jframe = torch.arange(R_s, dtype=torch.int32,
+                                          device=dkey.device) // (
+                                              R_s // ag_frames)
+                    hit = ((bits[st.key.long()] >> jframe[None, :]) & 1) != 0
+                else:
+                    hit = dest_mask[st.key.long()]
                 if ag_own_bundle and bi == 0:
                     hit = hit & (st.key != dkey[None, :st.key.shape[1]])
                 st.step_valid = st.step_valid & ~hit
@@ -239,10 +293,12 @@ def segment_key_fits(cfg: FusionConfig) -> bool:
             and (n_flat << lab_shift) < 2 ** 31)
 
 
-def frame_cube(grid: VoxelGrid, cfg: FusionConfig, origin: torch.Tensor):
+def frame_cube(grid: VoxelGrid, cfg: FusionConfig, origin: torch.Tensor,
+               shard_id=None, num_shards: int = 1):
     """The frame's dense block -> slot cube around the camera block:
-    (vals (B, pad) float32, -1 where the block is missing or out of world
-    bounds; cam_block (B, 3) int32), origin (3,) or (B, 3)."""
+    (vals (B, pad) float32, -1 where the block is missing, out of world
+    bounds or owned by another shard; cam_block (B, 3) int32), origin (3,)
+    or (B, 3)."""
     g = cfg.grid
     E, side, pad = kernels.cube_geometry(cfg)
     origin = origin.reshape(-1, 3)
@@ -258,7 +314,10 @@ def frame_cube(grid: VoxelGrid, cfg: FusionConfig, origin: torch.Tensor):
     keys = torch.where(inb, keys, -3)
     slots = bhash.lookup(grid.table_keys, grid.table_slots,
                          keys.reshape(-1), g.table_size).reshape(keys.shape)
-    vals = torch.where(inb & (slots >= 0), slots.float(), -1.0)
+    good = inb & (slots >= 0)
+    if num_shards > 1 and shard_id is not None:
+        good = good & owned(keys, shard_id, num_shards)
+    vals = torch.where(good, slots.float(), -1.0)
     vals = torch.nn.functional.pad(vals, (0, pad - side ** 3), value=-1.0)
     return vals.contiguous(), ob
 

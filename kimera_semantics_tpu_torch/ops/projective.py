@@ -1,7 +1,8 @@
 """Projective (voxel-centric) integration core.
 
 Counterpart: kimera_semantics_tpu/ops/projective.py (block_patch_meta(_rows),
-extract_patches, sample_patches, voxel_deltas, update_terms_from_sample).
+extract_patches(_multi), sample_patches, voxel_deltas(_multi),
+update_terms_from_sample).
 The per-voxel stage iterates the voxels of the frame's touched blocks and
 samples the mip atlas at each voxel's projected pixel, at a per-block mip
 level chosen so the block's projected bbox fits a row_window x col_window
@@ -13,6 +14,11 @@ patch whose origin is aligned to (8, 128).
 patch window reads 0, which is an invalid depth. Rounding follows the
 reference's compiled form (core/fp.py), so pixels, levels and masks agree
 bit for bit.
+
+A camera transform is (4, 4), shared by every block, or per block row
+(K, 1, 4, 4): the mixed-frame row path (voxel_deltas_multi), where row j
+samples frame frame_idx[j]'s atlas with that frame's pose. Both go through
+the same element-wise operations.
 """
 
 from __future__ import annotations
@@ -46,12 +52,21 @@ def block_patch_meta(block_coords: torch.Tensor, T_C_G: torch.Tensor,
     level, take the whole-image fallback (origin 0 at `plan.full_level`).
 
     Returns (level, u0_level, v0, u0_atlas) int32 tensors of shape (K,)."""
-    R, t = T_C_G[:3, :3], T_C_G[:3, 3]
+    return block_patch_meta_rows(block_coords, T_C_G[..., :3, :3],
+                                 T_C_G[..., :3, 3], intr, plan, block_size)
+
+
+def block_patch_meta_rows(block_coords: torch.Tensor, Rk: torch.Tensor,
+                          tk: torch.Tensor, intr, plan: mip_ops.MipPlan,
+                          block_size: float):
+    """block_patch_meta with the camera rotation and translation shared
+    (Rk (3, 3), tk (3,)) or per block row (Rk (K, 1, 3, 3), tk (K, 1, 3)):
+    the mixed-frame row path."""
     corners = ((block_coords.float()[:, None, :]
                 + _corner_offsets(block_coords.device)[None]) * block_size)
     c0, c1, c2 = corners[..., 0], corners[..., 1], corners[..., 2]
-    cam = [fma(R[i, 2], c2, fma(R[i, 1], c1, R[i, 0] * c0)) + t[i]
-           for i in range(3)]
+    cam = [fma(Rk[..., i, 2], c2, fma(Rk[..., i, 1], c1, Rk[..., i, 0] * c0))
+           + tk[..., i] for i in range(3)]
     z = cam[2]
     zsafe = torch.clamp(z, min=_Z_EPS)
     u = intr.fx * cam[0] / zsafe + intr.cx
@@ -111,6 +126,19 @@ def extract_patches(atlas: torch.Tensor, u0_atlas: torch.Tensor,
     return atlas[:, r[:, :, None], c[:, None, :]].permute(1, 0, 2, 3)
 
 
+def extract_patches_multi(atlases: torch.Tensor, frame_idx: torch.Tensor,
+                          u0_atlas: torch.Tensor, v0: torch.Tensor,
+                          plan: mip_ops.MipPlan) -> torch.Tensor:
+    """(D, C, AH, AW) stacked atlases -> (K, C, rows, cols) patches, row j
+    slicing atlas frame_idx[j]."""
+    dev = atlases.device
+    r = v0[:, None].long() + torch.arange(plan.row_window, device=dev)[None]
+    c = u0_atlas[:, None].long() + torch.arange(plan.col_window,
+                                                device=dev)[None]
+    f = frame_idx.long()[:, None, None]
+    return atlases[f, :, r[:, :, None], c[:, None, :]].permute(0, 3, 1, 2)
+
+
 def sample_patches(patches: torch.Tensor, row: torch.Tensor,
                    col: torch.Tensor, mode: str = "gather") -> torch.Tensor:
     """Per-voxel patch sampling: (K, C, rows, cols), (K, V3) -> (K, V3, C).
@@ -141,9 +169,9 @@ def centers_to_camera(T_C_G: torch.Tensor, hx, hy, hz, voxel_size: float):
     The reference computes T[i, j] * (h_j * voxel_size); its compiler
     reassociates that into h_j * (T[i, j] * voxel_size) and fuses the
     first and third products into the sums, which this mirrors."""
-    s = [[T_C_G[i, j] * voxel_size for j in range(3)] for i in range(3)]
-    return [fma(hz, s[i][2], fma(hx, s[i][0], hy * s[i][1])) + T_C_G[i, 3]
-            for i in range(3)]
+    s = [[T_C_G[..., i, j] * voxel_size for j in range(3)] for i in range(3)]
+    return [fma(hz, s[i][2], fma(hx, s[i][0], hy * s[i][1]))
+            + T_C_G[..., i, 3] for i in range(3)]
 
 
 def voxel_pixels(meta: torch.Tensor, T_C_G: torch.Tensor, cfg: FusionConfig,
@@ -174,16 +202,23 @@ def voxel_pixels(meta: torch.Tensor, T_C_G: torch.Tensor, cfg: FusionConfig,
 
 def sample_terms(meta: torch.Tensor, T_C_G: torch.Tensor,
                  atlas: torch.Tensor, cfg: FusionConfig, intr,
-                 plan: mip_ops.MipPlan, region: str = "all"):
+                 plan: mip_ops.MipPlan, region: str = "all",
+                 frame_idx=None):
     """Sample + per-voxel update terms for the K blocks of `meta`
-    (meta_rows layout). Returns (w, w_sdf, cnt, label, upd, color_gate,
-    rgb or None), each (K, V3), rgb (K, V3, 3) in COLOR mode."""
+    (meta_rows layout). With `frame_idx` (K,), `atlas` stacks one atlas
+    per frame (D, C, AH, AW) and T_C_G is per row (K, 1, 4, 4). Returns
+    (w, w_sdf, cnt, label, upd, color_gate, rgb or None), each (K, V3),
+    rgb (K, V3, 3) in COLOR mode."""
     v0, u0a, real = meta[:, 0], meta[:, 1], meta[:, 2]
     pX, pY, pZ, zsafe, sample_ok, row, col = voxel_pixels(meta, T_C_G, cfg,
                                                           intr, plan)
     with_color = cfg.semantic.color_mode == ColorMode.COLOR
     # Color mode samples all four channels, the others depth and label.
-    patches = extract_patches(atlas[:4 if with_color else 2], u0a, v0, plan)
+    n_ch = 4 if with_color else 2
+    patches = (extract_patches(atlas[:n_ch], u0a, v0, plan)
+               if frame_idx is None else
+               extract_patches_multi(atlas[:, :n_ch], frame_idx, u0a, v0,
+                                     plan))
     s = sample_patches(patches, row, col)                       # (K, V3, C)
     label = torch.round(s[..., 1]).to(torch.int32)
     w, w_sdf, cnt, upd, gate = update_terms_from_sample(
@@ -212,14 +247,34 @@ def voxel_deltas(block_coords: torch.Tensor, real_block: torch.Tensor,
     Returns a dict keyed like the grid channels: w, wsdf, cnt (K, V3),
     label (K, V3) int32, sem (K, L, V3), wcolor (K, 3, V3) (zeros unless
     ColorMode.COLOR)."""
+    K = block_coords.shape[0]
+    return voxel_deltas_multi(
+        torch.zeros((K,), dtype=torch.int32, device=block_coords.device),
+        block_coords, real_block, atlas[None], T_G_C[None], intr, plan, cfg,
+        sample_mode, region=region)
+
+
+def voxel_deltas_multi(frame_idx: torch.Tensor, block_coords: torch.Tensor,
+                       real_block: torch.Tensor, atlases: torch.Tensor,
+                       T_G_C_all: torch.Tensor, intr, plan: mip_ops.MipPlan,
+                       cfg: FusionConfig, sample_mode: str = "gather",
+                       region: str = "all"):
+    """voxel_deltas over a mixed-frame row list: row j samples frame
+    frame_idx[j]'s atlas with that frame's pose. atlases (D, C, AH, AW),
+    T_G_C_all (D, 4, 4)."""
     if sample_mode != "gather":
         raise ValueError(f"unknown sample mode: {sample_mode}")
     g = cfg.grid
-    T_C_G = transforms.inverse(T_G_C)
-    meta = meta_rows(block_coords, real_block, T_C_G, intr, plan,
-                     g.block_size)
+    T_C_G_all = torch.stack([transforms.inverse(t) for t in T_G_C_all])
+    Tk = T_C_G_all[frame_idx.long()][:, None]                 # (K, 1, 4, 4)
+    lvl, u0l, v0, u0a = block_patch_meta_rows(
+        block_coords, Tk[..., :3, :3], Tk[..., :3, 3], intr, plan,
+        g.block_size)
+    meta = torch.stack([v0, u0a, real_block.to(torch.int32), lvl, u0l,
+                        block_coords[:, 0], block_coords[:, 1],
+                        block_coords[:, 2]], dim=1)
     w, w_sdf, cnt, label, upd, gate, rgb = sample_terms(
-        meta, T_C_G, atlas, cfg, intr, plan, region)
+        meta, Tk, atlases, cfg, intr, plan, region, frame_idx=frame_idx)
     sem = label_planes(label, cnt, g.num_labels,
                        sem_ops.make_likelihood_cached(cfg).delta)
     if rgb is not None:

@@ -15,8 +15,10 @@ one more, --device (default cuda; cpu runs the kernels' plain versions):
 
 <dataset> is a directory of frame_*.npz files or a ROS1 .bag (image
 topics, or an organised PointCloud2 with --pointcloud-topic; TF, and
-static extrinsics from --static-tf-csv). Not ported yet (slice E), and
-refused with a message rather than ignored: --devices > 1.
+static extrinsics from --static-tf-csv). --devices N > 1 runs batch,
+stream and sim-eval over N grid shards (parallel/multihost.py), one frame
+per shard and step: N cards with --device cuda, or N shards sharing the
+CPU with --device cpu.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ import contextlib
 import json
 import os
 import sys
-
-SLICE_E = "not ported yet (slice E)"
 
 
 def _add_common(p):
@@ -95,8 +95,13 @@ def _add_common(p):
                         "semantic_integrator_base.cpp:153-158)")
     p.add_argument("--max-rays", type=int, default=32768)
     p.add_argument("--devices", type=int, default=1,
-                   help="spatial sharding over N devices: not ported yet "
-                        "(slice E); only 1 is accepted")
+                   help="spatial sharding over N grid shards "
+                        "(parallel/multihost.py): frames are consumed N per "
+                        "step, the block grid is hash-partitioned, meshing "
+                        "is incremental per updated block. With --device "
+                        "cuda it needs N cards; with --device cpu the N "
+                        "shards share the CPU. Methods: "
+                        "fast/merged/projective")
     p.add_argument("--alloc-stride", type=int, default=4,
                    help="projective: pixel subsampling for block allocation")
     p.add_argument("--block-budget", type=int, default=512,
@@ -282,12 +287,109 @@ def _build(args):
     return cfg, lmap
 
 
-def _refuse_slice_d(args):
-    """Exit with a message for the options not ported yet: the sharded
-    runs of slice E (--devices > 1)."""
-    if args.devices > 1:
-        raise SystemExit(f"--devices {args.devices}: {SLICE_E} in "
-                         "kimera_semantics_tpu_torch")
+def _sharded_pipeline(args, cfg, intr, lmap, dev):
+    """The --devices N pipeline: one shard per card under --device cuda
+    (raises when fewer are visible), N shards on the CPU under --device
+    cpu."""
+    from ..parallel import sharding
+    from ..parallel.multihost import MultiHostPipeline
+    if args.method not in ("fast", "merged", "projective"):
+        raise SystemExit("--devices sharding supports --method "
+                         "fast|merged|projective")
+    if dev.type == "cuda":
+        try:
+            mesh = sharding.make_mesh(args.devices)
+        except RuntimeError as e:
+            raise SystemExit(f"--devices {args.devices}: {e}") from e
+    else:
+        mesh = sharding.make_mesh(devices=[dev] * args.devices)
+    return MultiHostPipeline(cfg, intr, mesh, method=args.method,
+                             label_map=lmap)
+
+
+def _run_sharded(args, cfg, lmap, ds, dev, streaming: bool):
+    """batch/stream with --devices N: data-parallel frames into the
+    hash-sharded grid, incremental per-updated-block meshing each cycle
+    (stream), and one full mirror sync for the export. Returns (pipeline,
+    the dict of its JSON line)."""
+    import itertools
+    import time
+
+    from ..io import ply as ply_io
+    from ..models.common import Frame
+    from ..ops import esdf as esdf_ops
+    from ..ops import mesh as mesh_ops
+    from . import viz
+
+    d = args.devices
+    pipe = _sharded_pipeline(args, cfg, ds.intr, lmap, dev)
+    writer = (viz.LiveMeshWriter(args.live_mesh, args.live_mesh_keep)
+              if args.live_mesh else None)
+    streamer = (viz.MeshHTTPStreamer(args.live_port)
+                if args.live_port >= 0 else None)
+    if streamer is not None:
+        print(f"live mesh: http://127.0.0.1:{streamer.port}/",
+              file=sys.stderr)
+    # The single-device stream meshes every 5 frames; a step takes d.
+    mesh_every = max(1, 5 // d) if streaming else 0
+    count, batch = 0, []
+    t0 = time.perf_counter()
+    stream = iter(ds)
+    if args.max_frames is not None:
+        stream = itertools.islice(stream, args.max_frames)
+    with _trace(args.trace_dir, dev):
+        for f in stream:
+            batch.append(f)
+            if len(batch) < d:
+                continue
+            pipe.step(Frame.stack(batch))
+            count += d
+            batch = []
+            if args.log_every and count % args.log_every == 0:
+                print(f"Integrating frame {count} over {d} shards "
+                      f"({count / (time.perf_counter() - t0):.1f} fps)",
+                      file=sys.stderr)
+            if mesh_every and pipe.steps % mesh_every == 0:
+                m = pipe.update_mesh()
+                if writer is not None:
+                    writer.write(m)
+                if streamer is not None:
+                    streamer.publish(m, version=pipe.mesh_cache.version,
+                                     blocks=pipe.mesh_cache.num_blocks,
+                                     frames=count)
+    if batch:
+        print(f"warning: dropped {len(batch)} trailing frames (stream not "
+              f"divisible by --devices {d})", file=sys.stderr)
+    if streamer is not None:
+        streamer.close()
+
+    grid, mcfg = pipe.full_grid()
+    m = mesh_ops.extract_mesh(grid, mcfg, label_map=lmap,
+                              with_normals=args.mesh_normals)
+    if args.connected_mesh:
+        m = mesh_ops.connect_mesh(m, mcfg.grid.voxel_size)
+    if args.mesh_out:
+        ply_io.write_ply(args.mesh_out, m.vertices, m.colors, m.triangles,
+                         normals=m.normals)
+    out = {"frames": count, "devices": d,
+           "triangles": int(m.num_triangles),
+           "blocks": int(grid.n_blocks),
+           "overflow": pipe.sgrid.total("overflow"),
+           "dropped_rays": pipe.sgrid.total("dropped_rays")}
+    res = None
+    if args.esdf:
+        res = esdf_ops.compute_esdf_blocked(grid, mcfg,
+                                            max_dist=args.esdf_max_dist)
+        out["esdf_voxels"] = int(res.distance.size)
+    if args.map_out:
+        if args.map_out.endswith(".vxblx"):
+            from ..io import vxblx as vxblx_io
+            vxblx_io.save_vxblx(args.map_out, grid, mcfg, esdf=res)
+        else:
+            from ..io import serial as serial_io
+            serial_io.save_grid(args.map_out, grid)
+    print(json.dumps(out))
+    return pipe, out
 
 
 @contextlib.contextmanager
@@ -350,6 +452,8 @@ def cmd_batch(args, streaming: bool):
     cfg, lmap = _build(args)
     dev = resolve(args.device)
     ds = _dataset(args, lmap, dev)
+    if args.devices > 1:
+        return _run_sharded(args, cfg, lmap, ds, dev, streaming)
     srv = SemanticTsdfServer(
         cfg, ds.intr, lmap,
         ServerConfig(mesh_every_n_frames=5 if streaming else 0,
@@ -427,6 +531,8 @@ def cmd_sim_eval(args):
                              width=320, height=240)
     ds = SyntheticDataset(num_frames=args.num_viewpoints, intr=intr,
                           label_map=lmap, device=dev)
+    if args.devices > 1:
+        return _sim_eval_sharded(args, cfg, intr, lmap, ds, dev)
     srv = SemanticTsdfServer(cfg, intr, lmap, device=dev)
     with _trace(args.trace_dir, dev):
         srv.run(ds)
@@ -443,6 +549,41 @@ def cmd_sim_eval(args):
         out["invariants"] = checks.validate_grid(srv.grid, cfg)
     print(json.dumps(out))
     return srv, out
+
+
+def _sim_eval_sharded(args, cfg, intr, lmap, ds, dev):
+    """sim-eval with --devices N: the same ground-truth evaluation, N
+    frames per step, through the incremental mesh path and then the full
+    mirror sync. Returns (pipeline, the dict of its JSON line)."""
+    from ..ops import mesh as mesh_ops
+    from ..sim import eval as sim_eval
+    pipe = _sharded_pipeline(args, cfg, intr, lmap, dev)
+    with _trace(args.trace_dir, dev):
+        pipe.run(iter(ds))
+    inc_mesh = pipe.update_mesh()
+    grid, mcfg = pipe.full_grid()
+    errs = sim_eval.compare_to_world(
+        grid, mcfg, ds.world, surface_band=cfg.tsdf.truncation_distance)
+    mesh = mesh_ops.extract_mesh(grid, mcfg, label_map=lmap)
+    if args.mesh_out:
+        from ..io import ply as ply_io
+        ply_io.write_ply(args.mesh_out, mesh.vertices, mesh.colors,
+                         mesh.triangles)
+    out = {"rmse_tsdf": errs.rmse_tsdf, "mae_tsdf": errs.mae_tsdf,
+           "label_accuracy": errs.label_accuracy,
+           "compared": errs.num_compared,
+           "mesh_error": sim_eval.mesh_surface_error(mesh.vertices,
+                                                     ds.world),
+           "devices": args.devices, "frames": pipe.steps * args.devices,
+           "incremental_mesh_triangles": int(inc_mesh.num_triangles),
+           "blocks": int(grid.n_blocks),
+           "overflow": pipe.sgrid.total("overflow"),
+           "dropped_rays": pipe.sgrid.total("dropped_rays")}
+    if args.validate:
+        from ..utils import checks
+        out["invariants"] = checks.validate_grid(grid, mcfg)
+    print(json.dumps(out))
+    return pipe, out
 
 
 def parse_args(argv=None):
@@ -470,7 +611,6 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Run one command; returns the dict of its JSON line."""
     args = parse_args(argv)
-    _refuse_slice_d(args)
     if args.cmd in ("stream", "batch"):
         return cmd_batch(args, streaming=args.cmd == "stream")[1]
     return cmd_sim_eval(args)[1]

@@ -316,11 +316,12 @@ def ray_config(carve_mode="projective", near_surface=False, **pipeline):
                                     carve_budget=4096), **pipeline}))
 
 
-def slot_inputs(cfg, dev, n_frames=1):
+def slot_inputs(cfg, dev, n_frames=1, shard=None):
     """K6's inputs as the fast path makes them: the band jobs of
     `n_frames` frames concatenated along the ray axis, expanded by K1,
     their runs inserted, and the frames' cubes (every 5th cell cleared, so
-    some runs miss)."""
+    some runs miss; with `shard` = (my, num), the cells of other shards'
+    blocks hold -1 too)."""
     ds = SyntheticDataset(num_frames=6, intr=INTR,
                           label_map=kt.LabelColorMap.random(), device=dev)
     grid = blocks.create(cfg, device=dev)
@@ -341,7 +342,8 @@ def slot_inputs(cfg, dev, n_frames=1):
         grid.table_keys, grid.table_slots, grid.block_coords, grid.n_blocks,
         keys, keys >= 0, g.table_size, g.block_capacity,
         g.world_extent_blocks)
-    cube, cam = integrate.frame_cube(grid, cfg, torch.stack(origins))
+    cube, cam = integrate.frame_cube(grid, cfg, torch.stack(origins),
+                                     *(shard or ()))
     cube[:, ::5] = -1.0
     lab_shift = max(1, (g.num_labels - 1).bit_length())
     inform = sem_ops.informative(st.labels) & st.job_valid
@@ -1021,3 +1023,172 @@ def test_esdf_and_icp_on_card_match_cpu(cuda):
                                           T.cpu())
     assert float(ratio_g) == pytest.approx(float(ratio_c), abs=1e-3)
     np.testing.assert_allclose(tg.cpu().numpy(), tc.numpy(), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The sharded and batched routes
+# ---------------------------------------------------------------------------
+
+def assert_same_grid(g, ref, cfg):
+    """The same blocks and counters; every channel bit for bit, block by
+    block."""
+    for name in ("n_blocks", "overflow", "dropped_rays", "frame_counter"):
+        assert int(getattr(g, name)) == int(getattr(ref, name)), name
+    n = int(g.n_blocks)
+    assert n > 0 and int(g.overflow) == 0
+    coords = g.block_coords[:n]
+    a = blocks.lookup_slots(g, coords, cfg.grid).long()
+    b = blocks.lookup_slots(ref, coords, cfg.grid).long()
+    assert bool((b < cfg.grid.block_capacity).all())
+    for name in ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor"):
+        x, y = getattr(g, name), getattr(ref, name)
+        x, y = (x[:, a], y[:, b]) if x.dim() == 3 else (x[a], y[b])
+        assert torch.equal(x, y), name
+
+
+def band_stream(cfg, dev, n_frames):
+    """The band jobs of n_frames fast frames, concatenated."""
+    ds = SyntheticDataset(num_frames=8, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=dev)
+    grid = blocks.create(cfg, device=dev)
+    jobs = []
+    for i in range(n_frames):
+        grid, batches, _ = fast._frame_batches(grid, ds.frame(i), cfg, INTR)
+        (band, S), = batches
+        jobs.append(band)
+    return carve.JobBatch(*(torch.cat([getattr(j, f) for j in jobs])
+                            for f in carve.JOB_FIELDS)), S
+
+
+@pytest.mark.parametrize("shard", [0, 3])
+def test_integrate_jobs_shard_filter(cuda, shard):
+    """integrate_jobs with a shard filter, as the sharded ray steps call
+    it (slots by hash, no cube): K1 at voxel granularity and K5 against
+    the plain versions; only the shard's own blocks are allocated."""
+    cfg = ray_config()
+    band, S = band_stream(cfg, cuda, 4)
+    g = blocks.create(cfg, device=cuda)
+    kernels.reset_launches()
+    integrate.integrate_jobs(g, cfg, [(band, S)], shard_id=shard,
+                             num_shards=4)
+    assert (kernels.launches["dda_job_stream"],
+            kernels.launches["block_rmw_add"],
+            kernels.launches["slot_resolve_stream"]) == (1, 1, 0)
+    ref = blocks.create(cfg, device=cuda)
+    with plain_kernels():
+        integrate.integrate_jobs(ref, cfg, [(band, S)],
+                                 shard_id=torch.tensor(shard, device=cuda),
+                                 num_shards=4)
+    assert_same_grid(g, ref, cfg)
+    keys = bhash.pack_block_coords(g.block_coords[:int(g.n_blocks)],
+                                   cfg.grid.world_extent_blocks)
+    assert bool(integrate.owned(keys, shard, 4).all())
+
+
+def test_anti_grazing_frame_bitmask(cuda):
+    """Four merged frames' band and carve jobs in one integrate_jobs call
+    with ag_frames = 4 (the sharded merged step's bitmask): the kernels'
+    grid against the plain versions'."""
+    cfg = dataclasses.replace(ray_config(), tsdf=dataclasses.replace(
+        ray_config().tsdf, enable_anti_grazing=True))
+    ds = SyntheticDataset(num_frames=8, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    R = cfg.pipeline.max_rays
+    parts = []
+    for b in range(4):
+        _, batches, sem, _, bdest, _ = merged._frame_parts(
+            blocks.create(cfg, device=cuda), ds.frame(b), cfg, INTR)
+        parts.append((batches, sem, bdest))
+    batches = [(carve.JobBatch(*(torch.cat([getattr(p[0][k][0], f)
+                                            for p in parts])
+                                 for f in carve.JOB_FIELDS)),
+                parts[0][0][k][1]) for k in range(len(parts[0][0]))]
+    sem = tuple(torch.cat([p[1][i] + b * R if i == 0 else p[1][i]
+                           for b, p in enumerate(parts)]) for i in range(4))
+    dest = torch.cat([p[2] for p in parts])
+    grids = []
+    for route in ("kernels", "plain"):
+        g = blocks.create(cfg, device=cuda)
+        with (plain_kernels() if route == "plain"
+              else contextlib.nullcontext()):
+            kernels.reset_launches()
+            integrate.integrate_jobs(g, cfg, batches, sem_points=sem,
+                                     ag_dest_voxels=dest, ag_own_bundle=True,
+                                     ag_frames=4)
+            if route == "kernels":
+                # Band and carve streams through K1; the plain tail, no K5.
+                assert (kernels.launches["dda_job_stream"],
+                        kernels.launches["block_rmw_add"]) == (2, 0)
+        grids.append(g)
+    assert_same_grid(*grids, cfg)
+
+
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+def test_slot_resolve_sharded_cubes(cuda, shard):
+    """K6 over 4 frames' band stream against 4 frame cubes that hold only
+    this shard's blocks (frame_cube with shards), against its plain
+    version."""
+    args = slot_inputs(ray_config(), cuda, 4, shard=(shard, 4))
+    got = kernels.slot_resolve_stream(*args, False)
+    ref = kernels.slot_resolve_stream_plain(*args, False)
+    assert args[1].shape[0] == 4 and bool((ref[6] == -1).any())
+    for name, a, b in zip(("k2", "w", "wsdf", "cnt", "key", "valid",
+                           "run_slots"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def test_batched_fast_stages_eight_frames(cuda):
+    """fast integrate_frames over 8 frames: one K6 with 8 cubes and one K5
+    over 8 x block_budget staged rows, the grid against the plain
+    versions'."""
+    cfg = ray_config(block_budget=256)
+    ds = SyntheticDataset(num_frames=8, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = fast.common.Frame.stack([ds.frame(i) for i in range(8)])
+    rows = []
+    real_k5 = kernels.block_rmw_add
+
+    def k5(*a, **kw):
+        rows.append(a[5].shape[0])
+        return real_k5(*a, **kw)
+    g = blocks.create(cfg, device=cuda)
+    kernels.reset_launches()
+    kernels.block_rmw_add = k5
+    try:
+        fast.integrate_frames(g, frames, cfg, INTR, device=cuda)
+    finally:
+        kernels.block_rmw_add = real_k5
+    assert rows == [8 * 256]
+    assert (kernels.launches["slot_resolve_stream"],
+            kernels.launches["block_rmw_add"],
+            kernels.launches["dda_job_stream"]) == (1, 1, 9)
+    ref = blocks.create(cfg, device=cuda)
+    with plain_kernels():
+        fast.integrate_frames(ref, frames, cfg, INTR, device=cuda)
+    assert_same_grid(g, ref, cfg)
+
+
+@pytest.mark.parametrize("method", ["fast", "merged", "projective"])
+def test_sharded_steps_match_plain(cuda, method):
+    """One step of 4 shards on the card (merged with anti-grazing) against
+    the same step through the plain versions, shard by shard."""
+    from kimera_semantics_tpu_torch.parallel import sharding
+    cfg = ray_config() if method != "merged" else dataclasses.replace(
+        ray_config(), tsdf=dataclasses.replace(ray_config().tsdf,
+                                               enable_anti_grazing=True))
+    ds = SyntheticDataset(num_frames=8, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = fast.common.Frame.stack([ds.frame(i) for i in range(4)])
+    mesh = sharding.make_mesh(devices=[cuda] * 4)
+
+    def step(sg):
+        if method == "projective":
+            return sharding.integrate_frames_sharded_projective(
+                sg, frames, cfg, INTR, mesh)
+        return sharding.integrate_frames_sharded(sg, frames, cfg, INTR, mesh,
+                                                 method=method)
+    got = step(sharding.create_sharded(cfg, mesh))
+    with plain_kernels():
+        ref = step(sharding.create_sharded(cfg, mesh))
+    for a, b in zip(got, ref):
+        assert_same_grid(a, b, cfg)

@@ -125,7 +125,8 @@ def make_cfg(carving=True, const_weight=True, color=False, max_rays=64):
                                      sem_stage_mode="dense"))
 
 
-def run_rays(cfg, origin, pts, labels, clearing, colors, weights, cube):
+def run_rays(cfg, origin, pts, labels, clearing, colors, weights, cube,
+             **kw):
     n = len(pts)
     R = cfg.pipeline.max_rays
     pad = lambda a, dt: T(np.pad(np.asarray(a, dt),  # noqa: E731
@@ -138,7 +139,7 @@ def run_rays(cfg, origin, pts, labels, clearing, colors, weights, cube):
         grid, cfg, origin, pad(pts, np.float32), pad(weights, np.float32),
         pad(colors, np.float32), pad(labels, np.int32),
         pad(clearing, bool), T(valid),
-        cube_origin=origin if cube else None)
+        cube_origin=origin if cube else None, **kw)
 
 
 def oracle_run(cfg, origin, pts, labels, clearing, colors, weights):
@@ -236,16 +237,31 @@ def test_single_and_clearing_rays_match_oracle(cube):
 
 
 def test_not_yet_ported_options_raise():
-    """Sharding and multi-frame anti-grazing wait for slice E; the plain
-    scatter modes run (tests/test_torch_scatter_modes.py)."""
+    """Every option runs now: the plain scatter modes
+    (tests/test_torch_scatter_modes.py), the shard filter, which splits a
+    ray's blocks over two shards whose sums are the unsharded grid's, and
+    multi-frame anti-grazing (tests/test_torch_parallel.py), which only
+    refuses more frames than its int32 bitmask holds."""
     cfg = make_cfg()
     args = (np.zeros(3), np.array([[1.0, 0.3, 0.2]]), np.array([5]),
             np.array([False]), np.full((1, 3), 100.0), np.ones(1), False)
     direct = dataclasses.replace(cfg, pipeline=dataclasses.replace(
         cfg.pipeline, scatter_mode="direct"))
     assert float(run_rays(direct, *args).wsum.sum()) > 0
-    grid = tblocks.create(cfg, device="cpu")
-    for kw in (dict(shard_id=torch.tensor(0), num_shards=2),
-               dict(ag_frames=2)):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            tinteg.integrate_jobs(grid, cfg, [], **kw)
+    rng = np.random.RandomState(0)
+    dirs = rng.randn(16, 3)
+    pts = 3.0 * dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+    args = (np.zeros(3), pts, np.full(16, 5), np.zeros(16, bool),
+            np.full((16, 3), 100.0), np.ones(16), False)
+    whole = run_rays(cfg, *args)
+    parts = [run_rays(cfg, *args, shard_id=s, num_shards=2)
+             for s in (0, torch.tensor(1))]
+    assert sum(int(p.n_blocks) for p in parts) == int(whole.n_blocks) > 1
+    assert all(int(p.n_blocks) > 0 for p in parts)
+    assert float(sum(p.wsum.sum() for p in parts)) == pytest.approx(
+        float(whole.wsum.sum()), rel=1e-6)
+    far = torch.full((2 * cfg.pipeline.max_rays, 3), 1000, dtype=torch.int32)
+    ag = run_rays(cfg, *args, ag_dest_voxels=far, ag_frames=2)
+    assert torch.equal(ag.wsum, whole.wsum)
+    with pytest.raises(ValueError, match="bitmask"):
+        run_rays(cfg, *args, ag_dest_voxels=far, ag_frames=33)

@@ -14,8 +14,8 @@ from kimera_semantics_tpu_torch.models import factory as tfactory
 from kimera_semantics_tpu_torch.models import merged as tmerged
 from kimera_semantics_tpu_torch.models import simple as tsimple
 
-from test_torch_fast import (TINTR, assert_grids_match, configs, frames,  # noqa: F401
-                             run_jax, run_port)
+from test_torch_fast import (TINTR, assert_grids_match, assert_same_blocks,  # noqa: F401
+                             configs, frames, run_jax, run_port)
 
 
 @pytest.mark.parametrize("carve_mode,anti_grazing,stage_mode,route", [
@@ -84,10 +84,11 @@ def test_objects_and_loops_are_sequential(frames, kind, model):
         stacked = type(tfs[0])(*(torch.stack([getattr(f, n) for f in tfs])
                                  for n in ("depth", "labels", "colors",
                                            "T_G_C")))
+        # One update stream for the three frames: the same blocks and
+        # values, floats summed in another order.
         c = tmerged.integrate_frames(tblocks.create(ct, device="cpu"),
                                      stacked, ct, TINTR, device="cpu")
-        assert torch.equal(a.wsum, c.wsum) and torch.equal(a.sem_delta,
-                                                           c.sem_delta)
+        assert_same_blocks(a, c, ct)
 
 
 def test_default_device_is_the_card(frames):

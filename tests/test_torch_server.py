@@ -273,18 +273,24 @@ def test_cli_batch(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--esdf"], ["--esdf-every", "3"],
                                   ["--enable-icp"], ["--devices", "2"]])
-def test_slice_d_flags_exit(flag, tmp_path):
-    """The flags of slice D run now; only --devices > 1 (slice E) exits
-    with a message."""
+def test_slice_d_flags_exit(flag, tmp_path, capsys):
+    """The flags of slice D and --devices > 1 all run now: --devices 2
+    integrates two frames per step into two CPU shards (the third frame
+    does not fill a step)."""
     args = tnode.parse_args(["batch", str(tmp_path / "x.bag"), "--device",
                              "cpu"] + flag)
     if flag[0] == "--devices":
-        with pytest.raises(SystemExit, match="slice E"):
-            tnode._refuse_slice_d(args)
-        with pytest.raises(SystemExit, match="slice E"):
-            tnode.main(["batch", str(tmp_path), "--device", "cpu"] + flag)
+        ds = SyntheticDataset(num_frames=3, intr=INTR,
+                              label_map=JLabelColorMap.random())
+        tdataset.save_directory_dataset(str(tmp_path / "d"), ds)
+        out = tnode.main(["batch", str(tmp_path / "d"), "--device", "cpu",
+                          "--voxel-size", "0.2", "--voxels-per-side", "8",
+                          "--block-capacity", "512", "--mesh-out", ""]
+                         + flag)
+        assert last_json(capsys) == json.loads(json.dumps(out))
+        assert out["devices"] == 2 and out["frames"] == 2
+        assert out["blocks"] > 0 and out["overflow"] == 0
         return
-    tnode._refuse_slice_d(args)
     srv = tpipeline.SemanticTsdfServer(
         configs()[1], TINTR, device="cpu",
         server_cfg=tpipeline.ServerConfig(
