@@ -12,7 +12,12 @@ Phases, each of which must complete:
      same frame list) against its plain PyTorch version on the card, at
      the main path's shapes, and time both (K1 in its keys-only instance,
      which the allocation walk runs, and in its full instance), and time
-     an empty kernel (csrc/empty.cu) for the launch floor;
+     an empty kernel (csrc/empty.cu) for the launch floor; then the block
+     hash table's kernels ([hash]: H1 hash_lookup and H2 hash_insert,
+     csrc/hash.cu) against their plain versions with torch.equal on every
+     array at 512 keys in an 8192-entry table, 4096 colliding keys, and
+     capacity 16376 pushed past its capacity and probed through its
+     tombstones, H2 three times from one state with identical tables;
   3. drive the projective main path (models/projective.py integrate_frame)
      at the canonical configuration of bench.py (projective method,
      640x480, 0.05 m voxels, 16^3 blocks) over 4 warm-up and 24 timed
@@ -20,9 +25,14 @@ Phases, each of which must complete:
      that no block overflowed; trace the same loop on a fresh grid with
      torch.profiler for the time of each stage of integrate_frame and the
      device's busy share; re-run the same frames through the plain
-     versions on the card and compare the grids block by block; then drive
-     them with fused_apply=False (K4 then K5 per frame, K3 never) and hold
-     that grid to the fused one bit for bit; then two frames at vps 5 with
+     versions on the card and compare the grids block by block (the hash
+     tables entry for entry); then [syncs]: 8 projective frames under
+     torch.cuda.set_sync_debug_mode("error"), which must raise nothing,
+     and under torch.profiler, whose trace must hold no synchronizing
+     CUDA call (utils/syncs.py), and the syncs per frame left on the
+     fast, merged and serve frames, by call site; then drive them with
+     fused_apply=False (K4 then K5 per frame, K3 never) and hold that grid
+     to the fused one bit for bit; then two frames at vps 5 with
      fused_apply=False and at vps 21 (V3 % 8 != 0: K5's generic instance),
      each held bit for bit to a plain run on the card, and K4's and K5's
      generic instances checked and timed on the first frame; then the u16
@@ -162,6 +172,8 @@ KERNEL_SYMBOLS = {"dda_job_stream": "dda_kernel",
                   "slot_resolve_stream": "slot_resolve_kernel",
                   "block_rmw_add": "block_rmw_kernel",
                   "add_f32": "ksd_add_f32_kernel",
+                  "hash_lookup": "hash_lookup_kernel",
+                  "hash_insert": "hash_insert_kernel",
                   "empty": "empty_kernel"}
 CHANNELS = ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor")
 K1_OUTPUTS = ("key", "local", "w", "wsdf", "wc", "valid", "run_key",
@@ -361,6 +373,13 @@ def compare_grids(grid, ref, cfg, exact, label):
         if int(getattr(ref, name)) != int(getattr(grid, name)):
             fail(f"{label}: plain run {name} {int(getattr(ref, name))}, "
                  f"kernel run {int(getattr(grid, name))}")
+    # Both runs inserted the same key streams, and the hash kernels are
+    # deterministic: the tables are equal entry for entry, slot ids
+    # included.
+    for name in ("table_keys", "table_slots", "block_coords"):
+        if not torch.equal(getattr(grid, name), getattr(ref, name)):
+            fail(f"{label}: the plain run's {name} differ from the kernel "
+                 "run's")
     coords = grid.block_coords[:n_blocks]
     s_k = blocks.lookup_slots(grid, coords, g).long()
     s_p = blocks.lookup_slots(ref, coords, g).long()
@@ -673,16 +692,72 @@ def k4_check(kernels, proj_ops, label, cfg, intr, plan, meta, fslots, T_C_G,
         ops=60 * int(real.sum()) * V3)
 
 
-PROJECTIVE_KERNELS = ("dda_job_stream", "block_meta", "projective_apply_fused")
+PROJECTIVE_KERNELS = ("dda_job_stream", "block_meta", "projective_apply_fused",
+                      "hash_insert", "hash_lookup")
+# The hash kernels' launches per projective frame: the frame list's insert
+# (H2) and its lookup (H1).
+PROJ_HASH = dict(hash_insert=1, hash_lookup=1)
+# ... per fast or merged frame with the projective carve: the carve's frame
+# list (H2, H1), the runs' insert (H2) and the camera cube's lookup (H1).
+RAY_HASH = dict(hash_insert=2, hash_lookup=2)
+
+
+# The modules that look blocks up outside the integrators (grid/blocks.py
+# lookup_slots, one H1 launch a call): the mesh's neighbour lookup, the
+# map's save, ICP and the grid audit.
+LOOKUP_CALLERS = frozenset(f"kimera_semantics_tpu_torch/{m}.py" for m in (
+    "ops/mesh", "io/vxblx", "ops/icp", "utils/checks"))
+
+
+@contextlib.contextmanager
+def block_lookups():
+    """Count the calls of grid/blocks.py lookup_slots with at least one key,
+    by calling module (on any thread: the mesh cycle collects on a worker).
+    Yields the counts, {module path: calls}."""
+    import threading
+    from kimera_semantics_tpu_torch.grid import blocks as gblocks
+    real = gblocks.lookup_slots
+    calls, lock = {}, threading.Lock()
+
+    def counted(grid, block_coords, cfg, rounds=0):
+        if block_coords.numel():
+            caller = os.path.relpath(sys._getframe(1).f_code.co_filename,
+                                     ROOT)
+            with lock:
+                calls[caller] = calls.get(caller, 0) + 1
+        return real(grid, block_coords, cfg, rounds)
+    gblocks.lookup_slots = counted
+    try:
+        yield calls
+    finally:
+        gblocks.lookup_slots = real
+
+
+def check_launches(label, counts, want, lookups=None):
+    """Fail unless the launch counts equal `want`. `lookups`, block_lookups'
+    counts, adds one H1 launch a call, and every call must come from
+    LOOKUP_CALLERS: the integrators' own lookups are in `want`."""
+    want = dict(want)
+    if lookups is not None:
+        stray = sorted(set(lookups) - LOOKUP_CALLERS)
+        if stray:
+            fail(f"{label}: blocks looked up from {stray}: {lookups}")
+        want["hash_lookup"] += sum(lookups.values())
+    if dict(counts) != want:
+        fail(f"{label}: launches {counts}, expected {want}"
+             + (f" (block lookups {lookups})" if lookups is not None
+                else ""))
 # Each kernel's slice and the path of that slice whose run gives its
 # "launches": the projective main path (K1-K3), the fast integrator (K5,
 # K6), the serving output's CLI at 32^3 literal storage (K4) and the
-# scatter-strategy profiling tool's warm-kernel probe (K7).
+# scatter-strategy profiling tool's warm-kernel probe (K7); the hash
+# kernels (H1, H2) run on every path, and their slice's is the projective.
 MAIN_PATH = {"dda_job_stream": "projective", "block_meta": "projective",
              "projective_apply_fused": "projective",
              "projective_sample_update": "cli_vps32",
              "slot_resolve_stream": "fast", "block_rmw_add": "fast",
-             "add_f32": "scatter_profile"}
+             "add_f32": "scatter_profile", "hash_lookup": "projective",
+             "hash_insert": "projective"}
 
 
 def traced_profile(model, cfg, intr, frames, dev, stages, ms, tag,
@@ -823,7 +898,7 @@ def odd_vps_phase(kernels, proj, proj_ops, cfg, intr, frames, dev, launches):
         tag = f"vps{vps}"
         grid, counts, ms = drive(proj, c, intr, frames, 0, 2, dev, dict(
             dda_job_stream=1, block_meta=1, projective_sample_update=1,
-            block_rmw_add=1))
+            block_rmw_add=1, **PROJ_HASH))
         launches[tag] = counts
         ref = blocks.create(c, device=dev)
         plain_run(kernels, proj, ref, c, intr, frames[:2], dev)
@@ -868,7 +943,8 @@ def wire_phase(kernels, proj, mip_ops, cfg, intr, frames, dev, launches):
         fail("wire: the atlas decoded on the card differs from the CPU's")
     wire_bytes = sum(x.numel() * x.element_size() for x in card)
     n = WIRE_WARM + WIRE_FRAMES
-    expect = dict(dda_job_stream=1, block_meta=1, projective_apply_fused=1)
+    expect = dict(dda_job_stream=1, block_meta=1, projective_apply_fused=1,
+                  **PROJ_HASH)
     grid, counts, wms = drive(proj, cfg, intr, frames[:n], WIRE_WARM,
                               WIRE_FRAMES, dev, expect, wire_sim=True)
     launches["wire"] = counts
@@ -939,16 +1015,18 @@ def cli_phase(kt, kernels, intr, label_map, dev, launches):
                                 mesh_path, "--map-out", map_path])
         torch.cuda.synchronize()
         kernels.reset_launches()
-        with stdout_to_stderr():
+        with stdout_to_stderr(), block_lookups() as lookups:
             srv, out = node.cmd_batch(args, streaming=False)
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
         launches["cli_vps32"] = counts
         want = {k: (n if k in ("dda_job_stream", "block_meta",
-                               "projective_sample_update", "block_rmw_add")
+                               "projective_sample_update", "block_rmw_add",
+                               "hash_insert", "hash_lookup")
                     else 0) for k in counts}
-        if counts != want:
-            fail(f"cli: launches {counts}, expected {want}")
+        check_launches("cli", counts, want, lookups)
+        print(f"[cli] H1 launches: {n} by the integrator, "
+              f"{sum(lookups.values())} by block lookups {lookups}")
         if out["overflow"] != 0 or out["triangles"] <= 0:
             fail(f"cli: overflow {out['overflow']}, triangles "
                  f"{out['triangles']}")
@@ -1019,10 +1097,11 @@ def serve_phase(kt, kernels, intr, frames, dev, launches):
         int0 = timing.get(t_int)[0]
         kernels.reset_launches()
         t0 = time.perf_counter()
-        for f in frames[WARM_FRAMES:]:
-            srv.insert_frame(f)
-        srv.join_mesh()
-        torch.cuda.synchronize()
+        with block_lookups() as lookups:
+            for f in frames[WARM_FRAMES:]:
+                srv.insert_frame(f)
+            srv.join_mesh()
+            torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         int_s = timing.get(t_int)[0] - int0
         counts = dict(kernels.launches)
@@ -1033,13 +1112,16 @@ def serve_phase(kt, kernels, intr, frames, dev, launches):
         # carve's allocation, K2 + K3 for that carve, K5 once.
         mode = cfg.tsdf.carve_mode
         streams = 2 if mode == "decimated" else 1
-        want = dict(dda_job_stream=streams + (mode == "projective"),
-                    block_meta=int(mode == "projective"),
-                    projective_apply_fused=int(mode == "projective"),
-                    slot_resolve_stream=streams, block_rmw_add=1)
+        # H2 for the runs' insert and H1 for the cube, both once more for
+        # the projective carve's frame list; the mesh cycles' lookups add
+        # theirs.
+        carve = int(mode == "projective")
+        want = dict(dda_job_stream=streams + carve, block_meta=carve,
+                    projective_apply_fused=carve,
+                    slot_resolve_stream=streams, block_rmw_add=1,
+                    hash_insert=1 + carve, hash_lookup=1 + carve)
         want = {k: want.get(k, 0) * n for k in counts}
-        if counts != want:
-            fail(f"serve: launches {counts}, expected {want}")
+        check_launches("serve", counts, want, lookups)
         st = srv.stats()
         cyc = srv.mesh_cycle_s[n_cyc0:]
         if st["overflow"] != 0 or not cyc:
@@ -1056,7 +1138,8 @@ def serve_phase(kt, kernels, intr, frames, dev, launches):
               f"{1e3 * max(cyc):.2f}); mesh_stall_s "
               f"{srv.mesh_stall_s - stall0:.4f}; triangles {tris}; overflow "
               f"{st['overflow']} dropped_rays {st['dropped_rays']}; launches "
-              f"{counts}")
+              f"{counts}; block lookups (H1 launches beyond the "
+              f"integrator's) {lookups}")
         # integrate/<method> ends each frame in a synchronize, so it holds
         # the device work of the cycles enqueued before it; the rest of the
         # loop is the cycles' dispatch on the host.
@@ -1295,17 +1378,19 @@ def modes_phase(kt, kernels, frames, dev, launches):
                                 MERGED_FRAMES, dev, dict(
                                     dda_job_stream=2, block_meta=1,
                                     projective_apply_fused=1,
-                                    slot_resolve_stream=1, block_rmw_add=1))
+                                    slot_resolve_stream=1, block_rmw_add=1,
+                                    **RAY_HASH))
     line = [f"segment {1e3 / seg_ms:.1f}"]
     for mode in ("direct", "sorted"):
         cfg = dataclasses.replace(fcfg, pipeline=dataclasses.replace(
             fcfg.pipeline, scatter_mode=mode))
-        # The plain tail: hash-resolved slots and indexed adds, no K5 or
-        # K6; the projective carve keeps K1, K2 and K3.
+        # The plain tail: hash-resolved slots (H1 in place of the cube's)
+        # and indexed adds, no K5 or K6; the projective carve keeps K1, K2
+        # and K3.
         grid, counts, ms = drive(fast, cfg, fintr, frames, MERGED_WARM,
                                  MERGED_FRAMES, dev, dict(
                                      dda_job_stream=2, block_meta=1,
-                                     projective_apply_fused=1))
+                                     projective_apply_fused=1, **RAY_HASH))
         launches[f"fast_{mode}"] = counts
         worst = mode_compare(grid, seg_grid, fcfg, mode, f"modes {mode}")
         print(f"[modes] fast, scatter_mode {mode}: {MERGED_FRAMES} frames "
@@ -1403,7 +1488,7 @@ def bag_icp_phase(kt, kernels, intr, dev, launches):
         esdf0 = timing.get("esdf/batch")[0]
         torch.cuda.synchronize()
         kernels.reset_launches()
-        with stdout_to_stderr():
+        with stdout_to_stderr(), block_lookups() as lookups:
             srv, out = node.cmd_batch(args, streaming=False)
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
@@ -1412,10 +1497,14 @@ def bag_icp_phase(kt, kernels, intr, dev, launches):
         esdf_s = timing.get("esdf/batch")[0] - esdf0
         # Per frame (carve_mode "decimated", the preset's): K1 and K6 for
         # the band and the carve jobs, K5 once.
+        # H2 and H1 once each (the runs' insert, the cube); the mesh's and
+        # the map's block lookups add theirs.
         want = {k: n * dict(dda_job_stream=2, slot_resolve_stream=2,
-                            block_rmw_add=1).get(k, 0) for k in counts}
-        if counts != want:
-            fail(f"bag: launches {counts}, expected {want}")
+                            block_rmw_add=1, hash_insert=1,
+                            hash_lookup=1).get(k, 0) for k in counts}
+        check_launches("bag", counts, want, lookups)
+        print(f"[bag] H1 launches: {n} by the integrator, "
+              f"{sum(lookups.values())} by block lookups {lookups}")
         if out["overflow"] != 0 or out["triangles"] <= 0 or \
                 out["frames"] != n:
             fail(f"bag: {out}")
@@ -1576,20 +1665,27 @@ def sharded_launches(method, cfg, d):
     ownership-filtered dense apply (K2, K3) where free space is carved
     densely; per shard and gathered stream K1 at voxel granularity and,
     on the staged route, K5 (the sharded ray steps resolve slots by hash,
-    no K6; multi-frame anti-grazing takes the plain tail)."""
+    no K6; multi-frame anti-grazing takes the plain tail). The hash
+    kernels: per frame and shard the dense apply's frame list (H2, H1);
+    per shard the runs' insert (H2) and their slots' lookup (H1), and with
+    anti-grazing the lookup of the destination voxels' blocks (H1)."""
     ag = cfg.tsdf.enable_anti_grazing
     dense = method == "projective" or (
         cfg.tsdf.carve_mode == "projective" and not (method == "merged"
                                                      and ag))
     out = dict(dda_job_stream=d if dense else 0,
                block_meta=d * d if dense else 0,
-               projective_apply_fused=d * d if dense else 0)
+               projective_apply_fused=d * d if dense else 0,
+               hash_insert=d * d if dense else 0,
+               hash_lookup=d * d if dense else 0)
     if method != "projective":
         streams = 1 if cfg.tsdf.carve_mode == "projective" and not (
             method == "merged" and ag) else 2
         out["dda_job_stream"] += d * streams
         if not (method == "merged" and ag):
             out["block_rmw_add"] = d
+        out["hash_insert"] += d
+        out["hash_lookup"] += d * (2 if ag else 1)
     return out
 
 
@@ -1876,9 +1972,12 @@ def batched_phase(kt, kernels, frames, dev, launches, smi):
         cfg = with_pipeline(cfg, segment_budget=BATCH
                             * cfg.pipeline.segment_budget)
         label = f"batched {name}"
+        # H2 and H1 per frame for the dense carve's frame lists, then
+        # once each for the runs' insert and the BATCH cubes' lookup.
         expect = dict(dda_job_stream=BATCH + 1, block_meta=BATCH,
                       projective_apply_fused=BATCH, slot_resolve_stream=1,
-                      block_rmw_add=1 if name == "fast" else 0)
+                      block_rmw_add=1 if name == "fast" else 0,
+                      hash_insert=BATCH + 1, hash_lookup=BATCH + 1)
         warm = blocks.create(cfg, device=dev)
         model.integrate_frames(warm, batch, cfg, intr, device=dev)
         del warm
@@ -1964,6 +2063,302 @@ def parallel_phases(kt, kernels, frames, dev, launches, smi):
     del sg_fast, sg_proj
     mirror_phase(kt, frames, dev, fcfg, fintr, smi)
     batched_phase(kt, kernels, frames, dev, launches, smi)
+
+
+# -- the block hash table's kernels (H1, H2) and the host syncs -------------
+
+HASH_KERNELS = ("hash_lookup", "hash_insert")
+HASH_RUNS = 3            # [hash]: repeated H2 runs that must agree
+
+
+def probe_work(tk, ts, keys, table_size, rounds):
+    """(probed table words, hits) of a lookup of `keys`: the data-dependent
+    reads that H1's byte count takes."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import hash as bhash
+    mask = table_size - 1
+    idx = (bhash.mix(keys) & mask).long()
+    done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    probes = hits = 0
+    for _ in range(rounds):
+        k = tk[idx]
+        probes += int((~done).sum())
+        hit = (k == keys) & ~done
+        hits += int(hit.sum())
+        done = done | hit | (k == bhash.EMPTY_KEY)
+        if bool(done.all()):
+            break
+        idx = torch.where(done, idx, (idx + 1) & mask)
+    return probes, hits
+
+
+def hash_phase(kernels, dev, report):
+    """H1 and H2 against their plain versions on the card, torch.equal on
+    every array: 512 keys into an 8192-entry table holding 3000 blocks
+    (the frame list's insert at the canonical configuration's table),
+    4096 keys in groups of 8 sharing a home position, and 20000 keys
+    into a 32768-entry table of capacity 16376 (past the capacity: slot
+    overflow and tombstones), then a second batch probing through the
+    tombstones. H2 runs HASH_RUNS times from the same state, and every run
+    must give the same tables. H1 looks up the inserted keys and as many
+    absent ones in MAX_PROBES rounds and in 2 (lookup_bounded's complete
+    flag). Times both kernels at the first case (the projective frame's
+    shapes) and H2 at the others."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.grid import hash as bhash
+    rng = np.random.RandomState(9)
+    ext = 512
+
+    def table(T, cap):
+        return (torch.full((T,), -1, dtype=torch.int32, device=dev),
+                torch.full((T,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((cap, 3), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    hash_keys = bhash.sample_keys
+    prefill = hash_keys(rng, 3000, 12, ext)
+    batch = np.concatenate([prefill[:256], hash_keys(rng, 4000, 12, ext)])
+    batch = np.unique(batch)[:512]
+    rng.shuffle(batch)
+    over = hash_keys(rng, 20000, 20, ext)
+    cases = [("512 keys, table 8192, capacity 4096", 8192, 4096,
+              [prefill], batch),
+             ("4096 colliding keys (8 per home), table 8192, capacity 4096",
+              8192, 4096, [],
+              bhash.colliding_keys(rng, 4096, 8, 8192, ext)),
+             ("20000 keys, table 32768, capacity 16376", 32768, 16376, [],
+              over[:20000]),
+             ("then 4000 keys probing through its tombstones", 32768, 16376,
+              [over[:20000]], np.concatenate([over[16000:18000],
+                                              hash_keys(rng, 2000, 20,
+                                                        ext)]))]
+    names = ("table_keys", "table_slots", "block_coords", "n_blocks",
+             "overflow")
+    for label, T, cap, before, keys_np in cases:
+        state = table(T, cap)
+        for k in before:
+            state = kernels.hash_insert_plain(
+                *state, on(k), torch.ones(len(k), dtype=torch.bool,
+                                          device=dev), T, cap, ext)[:4]
+        keys = on(keys_np)
+        active = on(rng.rand(len(keys_np)) > 0.05)
+        args = (*state, keys, active, T, cap, ext)
+        runs = [kernels.hash_insert(*args) for _ in range(HASH_RUNS)]
+        ref = kernels.hash_insert_plain(*args)
+        torch.cuda.synchronize()
+        for r in runs:
+            for n, a, b in zip(names, r, runs[0]):
+                if not torch.equal(a, b):
+                    fail(f"[hash] {label}: H2 runs differ in {n}")
+        for n, a, b in zip(names, runs[0], ref):
+            if not torch.equal(a, b):
+                fail(f"[hash] {label}: H2 and its plain version differ in "
+                     f"{n}")
+        tk, ts = runs[0][0], runs[0][1]
+        absent = on(hash_keys(rng, len(keys_np), 40, ext))
+        q = torch.cat([keys, absent])
+        for rounds in (bhash.MAX_PROBES, 2):
+            got = kernels.hash_lookup(tk, ts, q, T, rounds)
+            want = kernels.hash_lookup_plain(tk, ts, q, T, rounds)
+            if not torch.equal(got[0], want[0]) or \
+                    bool(got[1]) != bool(want[1]):
+                fail(f"[hash] {label}: H1 and its plain version differ at "
+                     f"{rounds} rounds")
+        n_tomb = int((tk == bhash.TOMBSTONE_KEY).sum())
+        n_found = int((kernels.hash_lookup(tk, ts, keys, T,
+                                           bhash.MAX_PROBES)[0] >= 0).sum())
+        t = kernel_times("hash_insert", lambda: kernels.hash_insert(*args),
+                         lambda: kernels.hash_insert_plain(*args))
+        print(f"[hash] {label}: {len(keys_np)} keys, {int(active.sum())} "
+              f"active; n_blocks {int(runs[0][3])} overflow "
+              f"{int(runs[0][4])} tombstones {n_tomb}, {n_found} keys found; "
+              f"{HASH_RUNS} H2 runs identical and equal to the plain version "
+              f"(torch.equal on every array), H1 equal at "
+              f"{bhash.MAX_PROBES} and 2 rounds (complete "
+              f"{bool(kernels.hash_lookup(tk, ts, q, T, 2)[1])} at 2); H2 "
+              f"{t['ms']:.5f} ms device ({t['timed_by']}), plain "
+              f"{t['plain_ms']:.3f} ms")
+        if label.startswith("512"):
+            # The kernels line's entries, at the projective frame's shapes.
+            # H2 reads the keys and flags, the table words the active keys'
+            # probe chains reach, and both table arrays once more for the
+            # slot assignment's scan; it writes the claimed positions' keys,
+            # each new block's slot and coordinates, and n_blocks and
+            # overflow. H1 reads the keys and the words its probes reach.
+            claimed = int((tk != state[0]).sum())
+            new = int(runs[0][3]) - int(state[3])
+            probes, _ = probe_work(tk, ts, keys[active], T, bhash.MAX_PROBES)
+            report["hash_insert"] = dict(
+                err=0.0, **t,
+                bytes=(5 * len(keys_np) + 4 * probes + 8 * T + 4 * claimed
+                       + 16 * new + 12),
+                ops=len(keys_np) * 40 + T * 4)
+            print(f"[hash] H2 at 512 keys: {probes} probes, {claimed} "
+                  f"positions claimed, {new} new blocks: "
+                  f"{report['hash_insert']['bytes']} bytes moved at least")
+            probes, hits = probe_work(tk, ts, keys, T, bhash.MAX_PROBES)
+            report["hash_lookup"] = dict(
+                err=0.0, **kernel_times(
+                    "hash_lookup",
+                    lambda: kernels.hash_lookup(tk, ts, keys, T,
+                                                bhash.MAX_PROBES),
+                    lambda: kernels.hash_lookup_plain(tk, ts, keys, T,
+                                                      bhash.MAX_PROBES)),
+                bytes=8 * len(keys_np) + 4 * (probes + hits) + 1,
+                ops=len(keys_np) * 30 + probes * 4)
+            print(f"[hash] H1 at 512 keys: {probes} probes, {hits} hits; "
+                  f"{report['hash_lookup']['ms']:.5f} ms device "
+                  f"({report['hash_lookup']['timed_by']}), plain "
+                  f"{report['hash_lookup']['plain_ms']:.3f} ms")
+
+
+SYNC_WARM, SYNC_FRAMES = 2, 8     # [syncs]: warm-up and checked frames
+
+
+def sync_sites(fn):
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn") and count the
+    synchronizing operations by call site: the innermost frame of the port
+    package on the stack (else the warning's own location)."""
+    import traceback
+    import torch
+    pkg = os.path.join(ROOT, "kimera_semantics_tpu_torch") + os.sep
+    sites = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        # ("called a synchronizing CUDA operation"; not the mode's own
+        # notice that it is a prototype feature)
+        text = str(message)
+        if "synchroniz" not in text.lower() or "prototype" in text:
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if f.filename.startswith(pkg)]
+        # outside the port: the warning's location and its last callers
+        site = (f"{os.path.relpath(ours[-1].filename, ROOT)}:"
+                f"{ours[-1].lineno} {ours[-1].name}" if ours
+                else f"{filename}:{lineno} via " + " < ".join(
+                    f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                    for f in reversed(stack[-6:])))
+        sites[site] = sites.get(site, 0) + 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def syncs_phase(kt, kernels, frames, dev):
+    """The projective frame with no host sync: SYNC_WARM frames, then
+    SYNC_FRAMES frames of the canonical configuration under
+    torch.cuda.set_sync_debug_mode("error") (inputs already on the card),
+    which raises at any synchronizing operation; then the syncs that remain
+    per frame, by call site, on the fast, merged and serve frames (warn
+    mode over SYNC_FRAMES frames after SYNC_WARM)."""
+    import traceback
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.models import fast, merged
+    from kimera_semantics_tpu_torch.models import projective as proj
+    from kimera_semantics_tpu_torch.server import node
+    from kimera_semantics_tpu_torch.server.pipeline import (
+        SemanticTsdfServer, ServerConfig)
+    from kimera_semantics_tpu_torch.utils import syncs
+    cfg, intr = canonical(kt)
+    warm = frames[:SYNC_WARM]
+    checked = frames[SYNC_WARM:SYNC_WARM + SYNC_FRAMES]
+    grid = blocks.create(cfg, device=dev)
+    for f in warm:
+        proj.integrate_frame(grid, f, cfg, intr, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+
+    def frames_in_error_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for f in checked:
+                proj.integrate_frame(grid, f, cfg, intr, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Two witnesses of the same frames: the sync debug mode, which raises
+    # at a synchronizing operation but is a prototype that does not yet
+    # detect all of them, and the profiler's trace of the CUDA runtime
+    # calls, which must show launches and no synchronizing call, and must
+    # see the one that an .item() makes.
+    try:
+        found, n_calls = syncs.host_syncs(frames_in_error_mode)
+    except RuntimeError:
+        fail("[syncs] the projective frame synchronized with the host:\n"
+             + traceback.format_exc())
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    control, _ = syncs.host_syncs(
+        lambda: torch.ones(4, device=dev).sum().item())
+    if not control:
+        fail("[syncs] the profiler's trace shows no synchronizing call in "
+             "an .item(): it cannot witness the frames")
+    if found or n_calls < sum(counts.values()):
+        fail(f"[syncs] the profiler's trace of the projective frames: "
+             f"synchronizing calls {found}, {n_calls} launch calls for "
+             f"{counts}")
+    if counts["hash_insert"] != SYNC_FRAMES or \
+            counts["hash_lookup"] != SYNC_FRAMES:
+        fail(f"[syncs] projective launches {counts}")
+    if int(grid.overflow) != 0 or int(grid.n_blocks) <= 0:
+        fail(f"[syncs] projective overflow {int(grid.overflow)}")
+    print(f"[syncs] projective: {SYNC_FRAMES} frames under "
+          "set_sync_debug_mode('error') raised nothing, and their profiler "
+          f"trace holds {n_calls} launch calls and no synchronizing call "
+          f"(an .item() shows {control}): 0 host syncs per frame; launches "
+          f"{counts}; n_blocks {int(grid.n_blocks)}")
+    del grid
+
+    def per_frame(label, run):
+        sites = sync_sites(run)
+        per = {s: c / SYNC_FRAMES for s, c in sorted(sites.items())}
+        print(f"[syncs] {label}: {sum(sites.values()) / SYNC_FRAMES:g} per "
+              f"frame over {SYNC_FRAMES} frames: {json.dumps(per)}")
+
+    for label, model in (("fast", fast), ("merged", merged)):
+        rcfg, rintr = ray_config(kt, label)
+        g = blocks.create(rcfg, device=dev)
+        for f in warm:
+            model.integrate_frame(g, f, rcfg, rintr, device=dev)
+        torch.cuda.synchronize()
+        per_frame(label, lambda: [model.integrate_frame(
+            g, f, rcfg, rintr, device=dev) for f in checked])
+        torch.cuda.synchronize()
+        del g
+    args = node.parse_args(["stream", "unused", "--preset", "demo"])
+    with stdout_to_stderr(), contextlib.redirect_stderr(open(os.devnull,
+                                                             "w")):
+        scfg, lmap = node._build(args)
+    tmp = tempfile.mkdtemp(prefix="ksd_syncs_")
+    try:
+        srv = SemanticTsdfServer(scfg, intr, lmap, ServerConfig(
+            mesh_every_n_frames=5,
+            live_mesh_path=os.path.join(tmp, "live.ply")), device=dev)
+        for f in warm:
+            srv.insert_frame(f)
+        srv.join_mesh()
+        torch.cuda.synchronize()
+
+        def serve():
+            for f in checked:
+                srv.insert_frame(f)
+            srv.join_mesh()
+        per_frame("serve", serve)
+        torch.cuda.synchronize()
+        del srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def plain_run(kernels, model, grid, cfg, intr, frames, dev, **frame_kw):
@@ -2159,6 +2554,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4 = {"canonical": k4_check(kernels, proj_ops, "canonical", cfg, intr,
                                 plan, meta_k, fslots, T_C_G, atlas)}
+    # The block hash table's kernels H1 and H2, deterministic and equal to
+    # their plain versions.
+    hash_phase(kernels, dev, report)
 
     # -- 3. the main path ---------------------------------------------------
     grid = blocks.create(cfg, device=dev)
@@ -2212,6 +2610,9 @@ def main() -> int:
     del ref
     torch.cuda.empty_cache()
 
+    # No host sync on the projective frame; the syncs left on the others.
+    syncs_phase(kt, kernels, frames, dev)
+
     # The unfused route (fused_apply=False): K4 then K5 per frame, K3
     # never, and the grid of the fused route bit for bit.
     ucfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
@@ -2220,7 +2621,7 @@ def main() -> int:
                                n_frames, dev, dict(
                                    dda_job_stream=1, block_meta=1,
                                    projective_sample_update=1,
-                                   block_rmw_add=1))
+                                   block_rmw_add=1, **PROJ_HASH))
     launches["unfused"] = counts
     compare_grids(ugrid, grid, cfg, CHANNELS, "unfused vs fused")
     print(f"[unfused] {n_frames} frames: {ums:.3f} ms/frame host clock, "
@@ -2245,7 +2646,7 @@ def main() -> int:
     fcfg, fintr = ray_config(kt, "fast")
     per_frame_ray = dict(dda_job_stream=2, block_meta=1,
                          projective_apply_fused=1, slot_resolve_stream=1,
-                         block_rmw_add=1)
+                         block_rmw_add=1, **RAY_HASH)
     grid, counts, fms = drive(fast, fcfg, fintr, frames, WARM_FRAMES,
                               n_frames, dev, per_frame_ray)
     launches["fast"] = counts
@@ -2328,7 +2729,12 @@ def main() -> int:
                "slot_resolve_stream": (src + "slot_resolve.cu", tpu + "472"),
                "block_rmw_add": (src + "block_rmw.cu", tpu + "936"),
                "add_f32": (src + "add.cu",
-                           "scripts/profile_scatter_r4.py:106")}
+                           "scripts/profile_scatter_r4.py:106"),
+               # no TPU kernel: the JAX package's device-side probe loops
+               "hash_lookup": (src + "hash.cu",
+                               "kimera_semantics_tpu/grid/hash.py:72"),
+               "hash_insert": (src + "hash.cu",
+                               "kimera_semantics_tpu/grid/hash.py:105")}
     # bound_ms is the larger of the bytes' and the operations' time; the
     # measured launch floor rides beside it, and the least time a launch of
     # the kernel can take is the larger of bound_ms and launch_floor_ms.

@@ -34,6 +34,11 @@ class PinholeIntrinsics:
         )
 
 
+def depth_from_millimeters(depth_u16: torch.Tensor) -> torch.Tensor:
+    """16UC1 depth (mm) -> float32 meters; 0 means invalid (stays 0)."""
+    return depth_u16.to(torch.float32) * 1e-3
+
+
 def backproject(depth_m: torch.Tensor, intr: PinholeIntrinsics):
     """Back-project a (H, W) metric depth image into camera-frame points.
 

@@ -61,5 +61,9 @@ def apply(t: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return _dot3(x, y, z, t[:3, 0], t[:3, 1], t[:3, 2]) + t[:3, 3]
 
 
+def identity(device="cpu") -> torch.Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device)
+
+
 def translation(t: torch.Tensor) -> torch.Tensor:
     return t[:3, 3]

@@ -1,20 +1,24 @@
 """Open-addressing block hash table: BlockIndex -> slot.
 
-Counterpart: kimera_semantics_tpu/grid/hash.py (pack/unpack, mix, lookup,
-insert, insert_compacted, unique_keys, insert_frame_list). Block coordinates pack into one int32 key
-(10 bits per axis, offset by +world_extent_blocks), hash with a
-murmur3-style finalizer, and probe linearly. Insertion is a batched claim
-and verify loop: a racing `index_put_` claims empty positions and a read
-back tells each key whether it won. Of colliding writers an arbitrary one
-wins, so slot ids may differ between runs and from the JAX package; grids
-are compared by block coordinate.
+Counterpart: kimera_semantics_tpu/grid/hash.py (pack/unpack and their SoA
+forms, mix, lookup, insert, insert_compacted, unique_keys,
+insert_frame_list). Block coordinates pack into one int32 key (10 bits per
+axis, offset by +world_extent_blocks), hash with a murmur3-style finalizer,
+and probe linearly. Insertion is a batched claim and verify loop in which,
+of the keys bidding for one free position, the largest batch index wins:
+the last-writer rule of XLA:CPU's scatter, so the tables, slot ids
+included, equal the JAX package's and are the same from run to run.
 
-Each probe round of `lookup` and `insert` ends in one host sync (`.any()`)
-that decides whether another round is needed.
+The probe loops are the kernels H1 (`lookup`, `lookup_bounded`) and H2
+(`insert`) of ops/kernels.py on CUDA tensors, and their plain versions on
+CPU tensors. On the card no function here waits on the host: the counters
+stay 0-d device tensors and every scatter goes through a trash entry
+instead of a boolean-mask index.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 EMPTY_KEY = -1
@@ -65,89 +69,94 @@ def mix(keys: torch.Tensor) -> torch.Tensor:
     return (h & 0x7FFFFFFF).to(torch.int32)
 
 
-def _probe(table_keys, table_slots, keys, table_size: int):
-    """Generator of the probe rounds of `lookup`: yields (result, done)
-    after each round."""
-    mask = table_size - 1
-    idx = (mix(keys) & mask).long()
-    result = torch.full_like(keys, -1)
-    done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
-    for _ in range(MAX_PROBES):
-        k = table_keys[idx]
-        hit = (k == keys) & ~done
-        miss = (k == EMPTY_KEY) & ~done
-        result = torch.where(hit, table_slots[idx], result)
-        done = done | hit | miss
-        idx = torch.where(done, idx, (idx + 1) & mask)
-        yield result, done
+def pack_block_coords_soa(bx: torch.Tensor, by: torch.Tensor,
+                          bz: torch.Tensor, extent: int) -> torch.Tensor:
+    """Component-wise pack_block_coords."""
+    return ((bx + extent) << 20) | ((by + extent) << 10) | (bz + extent)
+
+
+def in_bounds_soa(bx, by, bz, extent: int) -> torch.Tensor:
+    """Component-wise in_bounds."""
+    ok = (bx >= -extent) & (bx < extent)
+    ok &= (by >= -extent) & (by < extent)
+    ok &= (bz >= -extent) & (bz < extent)
+    return ok
+
+
+def sample_keys(rng: np.random.RandomState, n: int, spread: int,
+                extent: int) -> np.ndarray:
+    """n distinct packed keys (int32 numpy) of block coordinates drawn from
+    [-spread, spread)^3, in random order: key sets for the table's tests
+    and card checks."""
+    side = 2 * spread
+    cells = rng.choice(side ** 3, size=n, replace=False)
+    c = np.stack(np.unravel_index(cells, (side,) * 3), axis=-1) - spread
+    c = (c + extent).astype(np.int64)
+    return ((c[:, 0] << 20) | (c[:, 1] << 10) | c[:, 2]).astype(np.int32)
+
+
+def colliding_keys(rng: np.random.RandomState, n: int, per_home: int,
+                   table_size: int, extent: int,
+                   home_step: int = 1) -> np.ndarray:
+    """n packed keys in groups of `per_home` that share one home position
+    mix(key) & (table_size - 1), found among random block coordinates;
+    the groups interleaved, so each group's probe chain is contested round
+    after round. The groups take the lowest homes that are multiples of
+    `home_step`: at 1 their chains run into each other."""
+    k = sample_keys(rng, min(60 * table_size, 200 ** 3), 100, extent)
+    home = mix(torch.from_numpy(k)).numpy() & (table_size - 1)
+    order = np.argsort(home, kind="stable")
+    k, home = k[order], home[order]
+    starts = np.flatnonzero(np.r_[True, home[1:] != home[:-1]])
+    counts = np.diff(np.r_[starts, len(home)])
+    full = starts[(counts >= per_home)
+                  & (home[starts] % home_step == 0)][: n // per_home]
+    if len(full) * per_home < n:
+        raise ValueError(f"too few groups of {per_home} colliding keys")
+    groups = np.stack([k[s:s + per_home] for s in full])   # (G, per_home)
+    return groups.T.reshape(-1)[:n].copy()
+
+
+def _kernels():
+    # ops/kernels.py imports this module; the wrappers are reached through
+    # the module attribute, so a caller may swap them for their plain
+    # versions (chip_smoke.py's reference runs).
+    from ..ops import kernels
+    return kernels
 
 
 def lookup(table_keys: torch.Tensor, table_slots: torch.Tensor,
            keys: torch.Tensor, table_size: int) -> torch.Tensor:
     """Key -> slot; -1 for missing keys. A key's probe ends at its match or
-    at the first EMPTY position."""
-    for result, done in _probe(table_keys, table_slots, keys, table_size):
-        if bool(done.all()):
-            break
-    return result
+    at the first EMPTY position, within MAX_PROBES rounds (H1)."""
+    return _kernels().hash_lookup(table_keys, table_slots,
+                                  keys.to(torch.int32).contiguous(),
+                                  table_size, MAX_PROBES)[0]
 
 
 def lookup_bounded(table_keys: torch.Tensor, table_slots: torch.Tensor,
                    keys: torch.Tensor, table_size: int, rounds: int):
-    """`lookup` in exactly `rounds` probe rounds, with no host sync: (slots,
-    complete), `complete` a device bool that every probe ended (else the
-    unfinished keys read -1)."""
-    for i, (result, done) in enumerate(_probe(table_keys, table_slots, keys,
-                                              table_size)):
-        if i + 1 == rounds:
-            break
-    return result, done.all()
+    """`lookup` in at most `rounds` probe rounds: (slots, complete),
+    `complete` a device bool that every probe ended (else the unfinished
+    keys read -1)."""
+    return _kernels().hash_lookup(table_keys, table_slots,
+                                  keys.to(torch.int32).contiguous(),
+                                  table_size, rounds)
 
 
 def insert(table_keys, table_slots, block_coords, n_blocks, keys, active,
            table_size: int, capacity: int, extent: int):
-    """Batch-insert packed block keys; allocate slots for new blocks.
+    """Batch-insert packed block keys; allocate slots for new blocks (H2).
 
     Returns new (table_keys, table_slots, block_coords, n_blocks,
     overflowed); the inputs are not modified. Keys that find no table
     position within MAX_PROBES, or whose slot would pass `capacity`, count
     in `overflowed`; a claim rolled back for capacity becomes a TOMBSTONE
     so wrapped probe chains stay walkable."""
-    mask = table_size - 1
-    table_keys = table_keys.clone()
-    idx = (mix(keys) & mask).long()
-    pending = active.clone()
-    for _ in range(MAX_PROBES):
-        if not bool(pending.any()):
-            break
-        k = table_keys[idx]
-        placed = (k == keys) & pending
-        pending = pending & ~placed
-        is_empty = ((k == EMPTY_KEY) | (k == TOMBSTONE_KEY)) & pending
-        # Racing claim: of colliding writers an arbitrary one is kept.
-        table_keys.index_put_((idx[is_empty],), keys[is_empty])
-        won = (table_keys[idx] == keys) & pending
-        pending = pending & ~won
-        idx = torch.where(pending, (idx + 1) & mask, idx)
-
-    # Slot assignment for newly claimed table positions, in table order.
-    is_new = ((table_keys != EMPTY_KEY) & (table_keys != TOMBSTONE_KEY)
-              & (table_slots < 0))
-    order = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
-    new_slots = n_blocks + order
-    fits = is_new & (new_slots < capacity)
-    table_slots = torch.where(fits, new_slots, table_slots)
-    table_keys = torch.where(is_new & ~fits,
-                             torch.full_like(table_keys, TOMBSTONE_KEY),
-                             table_keys)
-    block_coords = block_coords.clone()
-    block_coords[table_slots[fits].long()] = unpack_block_key(
-        table_keys[fits], extent)
-    n_new = fits.sum(dtype=torch.int32)
-    slot_overflow = (is_new & ~fits).sum(dtype=torch.int32)
-    probe_overflow = pending.sum(dtype=torch.int32)
-    return (table_keys, table_slots, block_coords, n_blocks + n_new,
-            slot_overflow + probe_overflow)
+    return _kernels().hash_insert(
+        table_keys, table_slots, block_coords, n_blocks,
+        keys.to(torch.int32).contiguous(), active.contiguous(), table_size,
+        capacity, extent)
 
 
 def _unique_sorted(keys: torch.Tensor, active: torch.Tensor, budget: int):
@@ -221,16 +230,18 @@ def insert_frame_list(table_keys, table_slots, block_coords, n_blocks, keys,
     pos = torch.where(isreal, grank * 8 + s % 8,
                       torch.full_like(s, budget))
     group_overflow = ((pos >= budget) & isreal).sum(dtype=torch.int32)
-    keep = pos < budget
+    # Rows past the budget scatter into one trash row (tile) past the
+    # list's end, which is cut off.
+    pos = torch.clamp(pos, max=budget).long()
     n_tiles = budget // 8
-    tile_groups = torch.full((n_tiles,), capacity // 8, dtype=torch.int32,
-                             device=dev)
-    tile_groups[(pos[keep] // 8).long()] = grp[keep]
+    tile_groups = torch.full((n_tiles + 1,), capacity // 8,
+                             dtype=torch.int32, device=dev)
+    tile_groups[pos // 8] = grp
     row = torch.arange(budget, dtype=torch.int32, device=dev) % 8
-    fslots = tile_groups.repeat_interleave(8) * 8 + row
-    freal = torch.zeros((budget,), dtype=torch.bool, device=dev)
-    freal[pos[keep].long()] = isreal[keep]
-    fcoords = torch.zeros((budget, 3), dtype=torch.int32, device=dev)
-    fcoords[pos[keep].long()] = coords_u[keep]
-    return (tk, ts, bc, nb, ov + dropped + group_overflow, fcoords, fslots,
-            freal)
+    fslots = tile_groups[:n_tiles].repeat_interleave(8) * 8 + row
+    freal = torch.zeros((budget + 1,), dtype=torch.bool, device=dev)
+    freal[pos] = isreal
+    fcoords = torch.zeros((budget + 1, 3), dtype=torch.int32, device=dev)
+    fcoords[pos] = coords_u
+    return (tk, ts, bc, nb, ov + dropped + group_overflow, fcoords[:budget],
+            fslots, freal[:budget])

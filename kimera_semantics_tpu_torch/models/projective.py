@@ -1,9 +1,9 @@
 """Projective semantic TSDF integrator, the main path.
 
 Counterpart: kimera_semantics_tpu/models/projective.py (integrate_frame,
-integrate_frames, candidates_from_atlas, allocate_from_atlas,
-insert_candidates, apply_frame, apply_rows_multi,
-ProjectiveSemanticTsdfIntegrator). Per frame:
+integrate_frames, candidates_from_atlas, allocate_from_depth,
+_allocate_rays, allocate_from_atlas, insert_candidates, apply_frame,
+apply_rows_multi, ProjectiveSemanticTsdfIntegrator). Per frame:
 
   1. mip atlas of the depth/label/color images      (ops/mip.py)
   2. allocation: a block-granularity DDA over the atlas level
@@ -95,7 +95,16 @@ def candidate_jobs(atlas: torch.Tensor, T_G_C: torch.Tensor,
     px_ok = depth < mip_ops.DEPTH_SENTINEL * 0.5
     depth = torch.where(px_ok, depth, 0.0)
     pts_C, px_valid = cam.backproject(depth, intr.scaled(W, H))
+    return ray_jobs(pts_C, labels, px_valid, T_G_C, cfg)
 
+
+def ray_jobs(pts_C: torch.Tensor, labels: torch.Tensor,
+             px_valid: torch.Tensor, T_G_C: torch.Tensor,
+             cfg: FusionConfig):
+    """The arguments of K1 for a frame's subsampled camera-frame points
+    pts_C (R, 3) with their labels and pixel validity (R,): the rays'
+    world-unit extents and validity (the reference's _candidate_keys
+    before its walk)."""
     g, t = cfg.grid, cfg.tsdf
     valid, is_clearing = tsdf_ops.point_validity(pts_C, t)
     valid = valid & px_valid & sem_ops.dynamic_label_mask(labels, cfg.semantic)
@@ -137,6 +146,31 @@ def insert_candidates(grid: VoxelGrid, keys, active, cfg: FusionConfig,
     return grid, fcoords, fslots, freal
 
 
+def allocate_from_depth(grid: VoxelGrid, depth, labels, T_G_C,
+                        cfg: FusionConfig, intr: PinholeIntrinsics,
+                        shard=None):
+    """Allocation from the raw images: every alloc_stride-th pixel's ray,
+    with exact 1/stride intrinsics sized to the strided image (the
+    reference's raw-image entry; integrate_frame reads the atlas instead,
+    allocate_from_atlas). Returns (grid, fcoords, fslots, freal)."""
+    stride = cfg.pipeline.alloc_stride
+    depth = depth[::stride, ::stride]
+    labels = labels[::stride, ::stride].reshape(-1)
+    sub = PinholeIntrinsics(
+        fx=intr.fx / stride, fy=intr.fy / stride, cx=intr.cx / stride,
+        cy=intr.cy / stride, width=int(math.ceil(intr.width / stride)),
+        height=int(math.ceil(intr.height / stride)))
+    pts_C, px_valid = cam.backproject(depth, sub)
+    return _allocate_rays(grid, pts_C, labels, px_valid, T_G_C, cfg, shard)
+
+
+def _allocate_rays(grid: VoxelGrid, pts_C, labels, px_valid, T_G_C,
+                   cfg: FusionConfig, shard=None):
+    keys, _, _, _, _, valid, _, _ = kernels.dda_job_stream(
+        *ray_jobs(pts_C, labels, px_valid, T_G_C, cfg), keys_only=True)
+    return insert_candidates(grid, keys, valid, cfg, shard=shard)
+
+
 def allocate_from_atlas(grid: VoxelGrid, atlas, T_G_C, cfg: FusionConfig,
                         intr: PinholeIntrinsics, plan, shard=None):
     with common.stage("candidates"):
@@ -171,7 +205,11 @@ def apply_frame(grid: VoxelGrid, atlas, T_G_C, fcoords, fslots, freal,
                 with_color=with_color, region=region)
             kernels.block_rmw_add(*channels, fslots, d_w, d_wsdf, d_cnt,
                                   d_lab, d_wc, lk_delta=lk)
-        grid.updated[fslots[freal].long()] = True
+        # OR the frame's real rows into the flags: padding rows and trash
+        # tiles OR in False, so no flag set by an earlier frame is cleared
+        # and no boolean-mask index waits on the host.
+        rows = fslots.long()
+        grid.updated[rows] = grid.updated[rows] | freal
     return grid
 
 

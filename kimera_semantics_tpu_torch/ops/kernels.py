@@ -13,6 +13,13 @@ hand-written CUDA kernel here (../csrc/*.cu, built by _build.py):
   block_rmw_add           K5  csrc/block_rmw.cu     (pallas_kernels.block_rmw_add)
   add_f32                 K7  csrc/add.cu           (scripts/profile_scatter_r4.py _add)
 
+and two kernels with no Pallas counterpart, the block hash table's probe
+loops, which the JAX package runs as jax.lax.while_loops inside its jitted
+programs (grid/hash.py lookup, insert):
+
+  hash_lookup             H1  csrc/hash.cu          (grid/hash.py lookup, lookup_bounded)
+  hash_insert             H2  csrc/hash.cu          (grid/hash.py insert)
+
 Each wrapper takes its plain PyTorch version (`*_plain`, same signature)
 only when its tensors lie on the CPU; on CUDA tensors it launches the kernel
 or raises. `launches[name]` counts kernel launches and nothing else.
@@ -27,6 +34,7 @@ import torch
 
 from ..config import ColorMode, FusionConfig
 from ..core.fp import f32, fma, recip
+from ..grid import hash as bhash
 from . import _build
 from . import projective as proj_ops
 from . import raycast
@@ -34,7 +42,8 @@ from . import tsdf as tsdf_ops
 
 launches = {"dda_job_stream": 0, "block_meta": 0,
             "projective_apply_fused": 0, "projective_sample_update": 0,
-            "slot_resolve_stream": 0, "block_rmw_add": 0, "add_f32": 0}
+            "slot_resolve_stream": 0, "block_rmw_add": 0, "add_f32": 0,
+            "hash_lookup": 0, "hash_insert": 0}
 
 
 def reset_launches():
@@ -734,3 +743,169 @@ def add_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                   "add_f32")
         launches["add_f32"] += 1
     return o
+
+
+# ---------------------------------------------------------------------------
+# H1, H2: the block hash table's probe loops
+# ---------------------------------------------------------------------------
+
+# H2 keeps its bid array in shared memory up to this many table entries
+# (128 KiB); larger tables bid in global scratch.
+HASH_SMEM_ENTRIES = 32768
+HashInsertParams = _struct("HashInsertParams", [
+    "n", "table_size", "capacity", "ext", "max_probes", "bid_in_smem"])
+
+
+def hash_lookup_plain(table_keys, table_slots, keys, table_size: int,
+                      rounds: int):
+    """Plain version of H1: the probe rounds as tensor ops, ending early
+    (a host sync per round) once every probe has ended."""
+    mask = table_size - 1
+    idx = (bhash.mix(keys) & mask).long()
+    result = torch.full_like(keys, -1)
+    done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    for _ in range(rounds):
+        k = table_keys[idx]
+        hit = (k == keys) & ~done
+        miss = (k == bhash.EMPTY_KEY) & ~done
+        result = torch.where(hit, table_slots[idx], result)
+        done = done | hit | miss
+        if bool(done.all()):
+            break
+        idx = torch.where(done, idx, (idx + 1) & mask)
+    return result, done.all()
+
+
+def _check_table(table_keys, table_slots, table_size: int, dev):
+    if table_size & (table_size - 1) or not 0 < table_size <= 1 << 30:
+        raise ValueError(f"table_size {table_size} must be a power of two "
+                         "up to 2^30")
+    _check(table_keys, "table_keys", torch.int32, (table_size,), dev)
+    _check(table_slots, "table_slots", torch.int32, (table_size,), dev)
+
+
+def hash_lookup(table_keys, table_slots, keys, table_size: int, rounds: int):
+    """Key -> slot by at most `rounds` linear probe rounds from
+    mix(key) & (table_size - 1); a probe ends at its key or at EMPTY_KEY
+    (not at TOMBSTONE_KEY). keys (N,) int32. Returns (slots (N,) int32, -1
+    where missing or unfinished; complete, a 0-d bool on the device, false
+    if any probe was still running after `rounds`)."""
+    if _on_cpu(keys):
+        return hash_lookup_plain(table_keys, table_slots, keys, table_size,
+                                 rounds)
+    dev = keys.device
+    N = keys.shape[0]
+    _check_table(table_keys, table_slots, table_size, dev)
+    _check(keys, "keys", torch.int32, (N,), dev)
+    slots = torch.empty((N,), dtype=torch.int32, device=dev)
+    complete = torch.ones((), dtype=torch.bool, device=dev)
+    if N > 0:
+        fn = _build.bind("hash", "ksd_hash_lookup",
+                         (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+                         + (ctypes.c_void_p,) * 3)
+        _raise_on(fn(_ptr(table_keys), _ptr(table_slots), _ptr(keys), N,
+                     table_size, rounds, _ptr(slots), _ptr(complete),
+                     _stream(dev)), "hash_lookup")
+        launches["hash_lookup"] += 1
+    return slots, complete
+
+
+def hash_insert_plain(table_keys, table_slots, block_coords, n_blocks, keys,
+                      active, table_size: int, capacity: int, extent: int):
+    """Plain version of H2. Each probe round, of the pending keys bidding
+    for one EMPTY or TOMBSTONE position the one of largest batch index
+    wins (scatter_reduce "amax"), the rule of XLA:CPU's and torch's CPU
+    scatter; the rounds end early (a host sync per round) once no key is
+    pending. Scatters go through one trash entry past the table's and the
+    coordinates' last, which is then cut off."""
+    mask = table_size - 1
+    dev = keys.device
+    N = keys.shape[0]
+    trash = torch.full((1,), bhash.EMPTY_KEY, dtype=torch.int32, device=dev)
+    tk = torch.cat([table_keys, trash])
+    idx = (bhash.mix(keys) & mask).long()
+    pending = active.clone()
+    batch = torch.arange(N, device=dev)
+    for _ in range(bhash.MAX_PROBES):
+        if not bool(pending.any()):
+            break
+        k = tk[idx]
+        pending = pending & (k != keys)
+        bidding = ((k == bhash.EMPTY_KEY) | (k == bhash.TOMBSTONE_KEY)) \
+            & pending
+        at = torch.where(bidding, idx, table_size)
+        bid = torch.full((table_size + 1,), -1, dtype=torch.int64,
+                         device=dev)
+        bid.scatter_reduce_(0, at, batch, "amax")
+        winner = bidding & (bid[idx] == batch)
+        tk[torch.where(winner, idx, table_size)] = keys
+        pending = pending & (tk[idx] != keys)
+        idx = torch.where(pending, (idx + 1) & mask, idx)
+    tk, ts, bc, nb, slot_overflow = assign_slots_plain(
+        tk[:table_size], table_slots, block_coords, n_blocks, capacity,
+        extent)
+    return tk, ts, bc, nb, slot_overflow + pending.sum(dtype=torch.int32)
+
+
+def assign_slots_plain(table_keys, table_slots, block_coords, n_blocks,
+                       capacity: int, extent: int):
+    """H2's second phase as tensor ops: the claimed positions with no slot
+    yet take slots n_blocks, n_blocks + 1, ... in table order below
+    `capacity` and write their block coordinates; the rest roll back to
+    TOMBSTONE_KEY. Returns (table_keys, table_slots, block_coords,
+    n_blocks, slot overflow)."""
+    tk = table_keys
+    is_new = ((tk != bhash.EMPTY_KEY) & (tk != bhash.TOMBSTONE_KEY)
+              & (table_slots < 0))
+    order = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
+    new_slots = n_blocks + order
+    fits = is_new & (new_slots < capacity)
+    ts = torch.where(fits, new_slots, table_slots)
+    tk = torch.where(is_new & ~fits, bhash.TOMBSTONE_KEY, tk)
+    bc = torch.cat([block_coords, block_coords.new_zeros((1, 3))])
+    bc[torch.where(fits, ts, capacity).long()] = bhash.unpack_block_key(
+        tk, extent)
+    return (tk, ts, bc[:capacity], n_blocks + fits.sum(dtype=torch.int32),
+            (is_new & ~fits).sum(dtype=torch.int32))
+
+
+def hash_insert(table_keys, table_slots, block_coords, n_blocks, keys,
+                active, table_size: int, capacity: int, extent: int):
+    """Batch-insert packed block keys and give new blocks slots (H2, one
+    CTA). keys (N,) int32, active (N,) bool; n_blocks a 0-d int32 on the
+    device. Returns new (table_keys, table_slots, block_coords, n_blocks,
+    overflow), the inputs unmodified: a key claims the first EMPTY or
+    TOMBSTONE position of its probe, the largest batch index winning a
+    contested one; new positions take slots n_blocks, n_blocks + 1, ... in
+    table order below `capacity`, the rest roll back to TOMBSTONE_KEY;
+    overflow counts those and the keys still unplaced after MAX_PROBES
+    rounds."""
+    if _on_cpu(keys):
+        return hash_insert_plain(table_keys, table_slots, block_coords,
+                                 n_blocks, keys, active, table_size,
+                                 capacity, extent)
+    dev = keys.device
+    N = keys.shape[0]
+    _check_table(table_keys, table_slots, table_size, dev)
+    _check(block_coords, "block_coords", torch.int32, (capacity, 3), dev)
+    _check(n_blocks, "n_blocks", torch.int32, (), dev)
+    _check(keys, "keys", torch.int32, (N,), dev)
+    _check(active, "active", torch.bool, (N,), dev)
+    tk, ts, bc = table_keys.clone(), table_slots.clone(), block_coords.clone()
+    nb = torch.empty((), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    state = torch.empty((max(N, 1),), dtype=torch.int32, device=dev)
+    in_smem = table_size <= HASH_SMEM_ENTRIES
+    bid = None if in_smem else torch.full((table_size,), -1,
+                                          dtype=torch.int32, device=dev)
+    p = HashInsertParams(n=N, table_size=table_size, capacity=capacity,
+                         ext=extent, max_probes=bhash.MAX_PROBES,
+                         bid_in_smem=int(in_smem))
+    fn = _build.bind("hash", "ksd_hash_insert",
+                     (ctypes.c_void_p,) * 8 + (HashInsertParams,)
+                     + (ctypes.c_void_p,) * 3)
+    _raise_on(fn(*(_ptr(x) for x in (tk, ts, bc, n_blocks, keys, active,
+                                      state, bid)), p, _ptr(nb),
+                 _ptr(overflow), _stream(dev)), "hash_insert")
+    launches["hash_insert"] += 1
+    return tk, ts, bc, nb, overflow

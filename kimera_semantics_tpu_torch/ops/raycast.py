@@ -1,7 +1,7 @@
 """Batched Amanatides-Woo voxel traversal (DDA).
 
 Counterpart: kimera_semantics_tpu/ops/raycast.py (setup_rays,
-traverse_soa). Every ray is expanded into a fixed number of steps; steps
+traverse_soa, traverse). Every ray is expanded into a fixed number of steps; steps
 past the ray's end are masked. This is the plain version of the DDA kernel
 (ops/kernels.py dda_job_stream), which shares `dda_init` and `dda_advance`
 with it.
@@ -88,3 +88,11 @@ def traverse_soa(start3: torch.Tensor, end3: torch.Tensor, max_steps: int):
         valid.append(s <= n_steps)
         curr, t_next = dda_advance(curr, t_next, sign, t_step)
     return torch.stack(voxels), torch.stack(valid)
+
+
+def traverse(start_scaled: torch.Tensor, end_scaled: torch.Tensor,
+             max_steps: int):
+    """(R, 3)-layout wrapper around traverse_soa (tests, oracle
+    comparisons): voxels (R, S, 3) and valid (R, S)."""
+    voxels, valid = traverse_soa(start_scaled.T, end_scaled.T, max_steps)
+    return voxels.permute(2, 0, 1), valid.T

@@ -1,7 +1,8 @@
 """Bayesian semantic label fusion math.
 
 Counterpart: kimera_semantics_tpu/ops/semantic.py (Likelihood,
-make_likelihood, dynamic_label_mask, informative, normalize_probabilities)
+make_likelihood, likelihood_matrix, dynamic_label_mask, informative,
+normalize_probabilities)
 and the likelihood cache
 of kimera_semantics_tpu/ops/integrate.py (make_likelihood_cached).
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..config import SemanticConfig, UNKNOWN_LABEL
@@ -40,6 +42,18 @@ def make_likelihood(cfg: SemanticConfig) -> Likelihood:
 
 
 _LIKELIHOOD_CACHE = {}
+
+
+def likelihood_matrix(cfg: SemanticConfig, num_labels: int) -> np.ndarray:
+    """The explicit L x L log-likelihood matrix, for tests and docs: log
+    match on the diagonal, log non-match elsewhere, the unknown label's
+    column zero."""
+    lk = make_likelihood(cfg)
+    mat = np.full((num_labels, num_labels), lk.log_nonmatch,
+                  dtype=np.float32)
+    np.fill_diagonal(mat, lk.log_match)
+    mat[:, UNKNOWN_LABEL] = 0.0
+    return mat
 
 
 def make_likelihood_cached(cfg) -> Likelihood:

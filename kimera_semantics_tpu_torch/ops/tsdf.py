@@ -1,7 +1,7 @@
 """Projective TSDF update math.
 
 Counterpart: kimera_semantics_tpu/ops/tsdf.py (point_validity,
-voxel_weight, projective_sdf_soa, update_terms): voxblox isPointValid and updateTsdfVoxel's weight drop-off
+voxel_weight, projective_sdf, projective_sdf_soa, update_terms): voxblox isPointValid and updateTsdfVoxel's weight drop-off
 and color gate, as batched tensor functions. Rounding follows the
 reference's compiled form (core/fp.py): the norm is a fused-multiply-add
 chain, and the drop-off division by a constant is a reciprocal multiply.
@@ -44,6 +44,27 @@ def voxel_weight(points_C: torch.Tensor, cfg: TsdfConfig) -> torch.Tensor:
                           device=points_C.device)
     z = points_C[..., 2].abs()
     return torch.where(z > 1e-6, 1.0 / torch.clamp(z * z, min=1e-12), 0.0)
+
+
+def projective_sdf(origin: torch.Tensor, points_G: torch.Tensor,
+                   voxel_coords: torch.Tensor,
+                   voxel_size: float) -> torch.Tensor:
+    """voxblox `computeDistance`: the signed distance of each voxel center
+    to its ray's surface point, along the ray,
+
+      sdf = |p - o| - (c - o) . (p - o) / |p - o|
+
+    origin (3,) or (R, 3); points_G (R, 3); voxel_coords (R, S, 3) int32.
+    Returns (R, S). The (R, 3)-layout form of projective_sdf_soa, for
+    tests; its norm and dot product are plain reductions."""
+    center = (voxel_coords.to(torch.float32) + 0.5) * voxel_size
+    origin = origin.expand(points_G.shape)
+    v_point = points_G - origin
+    dist_g = torch.linalg.vector_norm(v_point, dim=-1, keepdim=True)
+    v_voxel = center - origin[:, None, :]
+    dist_gv = (v_voxel * v_point[:, None, :]).sum(-1) / torch.clamp(
+        dist_g, min=1e-12)
+    return dist_g - dist_gv
 
 
 def projective_sdf_soa(origin: torch.Tensor, points_G: torch.Tensor, vx, vy,

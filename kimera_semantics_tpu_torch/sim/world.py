@@ -1,7 +1,7 @@
 """Analytic SDF simulation world, the synthetic ground-truth generator.
 
 Counterpart: kimera_semantics_tpu/sim/world.py (World, WorldBuilder,
-default_eval_world, world_sdf). Primitive objects with exact signed-distance
+default_eval_world, world_sdf, generate_semantic_sdf). Primitive objects with exact signed-distance
 functions, each carrying the reference's label convention {Sphere->1,
 Cube->2, Plane->3, Cylinder->4}, stored as a struct of tensors.
 """
@@ -24,6 +24,10 @@ class World:
     params: torch.Tensor  # (O, 3) float32: sphere (r,-,-), cube half-extents,
                           #   plane unit normal, cylinder (r, h/2, -)
     label: torch.Tensor   # (O,) int32 semantic label
+
+    @property
+    def num_objects(self) -> int:
+        return self.kind.shape[0]
 
     def to(self, device) -> "World":
         return World(*(t.to(device) for t in (self.kind, self.center,
@@ -100,3 +104,50 @@ def world_sdf(world: World, points: torch.Tensor):
     d = object_sdf(world, points)
     dmin, amin = d.min(dim=-1)
     return dmin, world.label[amin]
+
+
+def generate_semantic_sdf(world: World, cfg, lower, upper,
+                          gt_weight: float = 1.0, device="cuda"):
+    """A VoxelGrid of ground-truth distance and labels over an AABB
+    (generateSemanticSdfFromWorld): every block between `lower` and `upper`
+    (world metres, both included) is allocated, and each of its voxels gets
+    the world SDF at its center, clamped to the truncation band, weight
+    `gt_weight`, and the nearest object's label as one strong vote
+    (sem_delta 100, sem_count 1). Raises when the blocks exceed the
+    capacity."""
+    import torch.nn.functional as F
+
+    from ..device import resolve
+    from ..grid import blocks as gblocks
+    dev = resolve(device)
+    g = cfg.grid
+    vps = g.voxels_per_side
+    lo_blk = np.floor(np.asarray(lower) / g.block_size).astype(np.int32)
+    hi_blk = np.floor(np.asarray(upper) / g.block_size).astype(np.int32)
+    axes = [np.arange(lo_blk[d], hi_blk[d] + 1) for d in range(3)]
+    coords = np.stack(np.meshgrid(*axes, indexing="ij"),
+                      axis=-1).reshape(-1, 3)
+    if len(coords) > g.block_capacity:
+        raise ValueError(f"world AABB needs {len(coords)} blocks > capacity "
+                         f"{g.block_capacity}")
+    grid = gblocks.create(cfg, device=dev)
+    coords_t = torch.as_tensor(coords, dtype=torch.int32, device=dev)
+    grid = gblocks.allocate_blocks(
+        grid, coords_t, torch.ones(len(coords), dtype=torch.bool,
+                                   device=dev), g)
+    slots = gblocks.lookup_slots(grid, coords_t, g).long()
+    ii = np.arange(vps)
+    local = torch.as_tensor(np.stack(np.meshgrid(ii, ii, ii, indexing="ij"),
+                                     axis=-1).reshape(-1, 3),
+                            dtype=torch.int32, device=dev)
+    centers = ((coords_t[:, None, :] * vps + local[None]).to(torch.float32)
+               + 0.5) * g.voxel_size
+    sdf, label = world_sdf(world.to(dev), centers)          # (Nb, V3)
+    trunc = cfg.tsdf.truncation_distance
+    grid.wsum[slots] = gt_weight
+    grid.wsdf[slots] = torch.clamp(sdf, -trunc, trunc) * gt_weight
+    onehot = F.one_hot(label.long(), g.num_labels).to(torch.float32)
+    grid.sem_delta[:, slots] = onehot.permute(2, 0, 1) * 100.0
+    grid.sem_count[slots] = 1.0
+    grid.updated[slots] = True
+    return grid

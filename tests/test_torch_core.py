@@ -21,6 +21,7 @@ from kimera_semantics_tpu.core import color as jcolor
 from kimera_semantics_tpu.core import transforms as jtr
 from kimera_semantics_tpu.ops import mip as jmip
 from kimera_semantics_tpu.ops import raycast as jray
+from kimera_semantics_tpu.ops import semantic as jsem
 from kimera_semantics_tpu.ops import tsdf as jtsdf
 
 from kimera_semantics_tpu_torch import config as tcfg
@@ -29,6 +30,7 @@ from kimera_semantics_tpu_torch.core import color as tcolor
 from kimera_semantics_tpu_torch.core import transforms as ttr
 from kimera_semantics_tpu_torch.ops import mip as tmip
 from kimera_semantics_tpu_torch.ops import raycast as tray
+from kimera_semantics_tpu_torch.ops import semantic as tsem
 from kimera_semantics_tpu_torch.ops import tsdf as ttsdf
 
 
@@ -205,3 +207,49 @@ def test_build_atlas_exact():
         N(jmip.unpack_color(jnp.asarray(rg), jnp.asarray(b))))
     for x, y in zip(tmip.level_tables(pt), jmip.level_tables(pj)):
         np.testing.assert_array_equal(N(x), N(y))
+
+
+def test_depth_from_millimeters_and_identity():
+    """16UC1 millimetres to metres (0 stays 0, 65535 the largest) and the
+    identity pose, exactly."""
+    rng = np.random.RandomState(5)
+    mm = rng.randint(0, 65536, (48, 64)).astype(np.uint16)
+    mm[0, :3] = [0, 1, 65535]
+    np.testing.assert_array_equal(N(tcam.depth_from_millimeters(T(mm))),
+                                  N(jit(jcam.depth_from_millimeters, mm)))
+    np.testing.assert_array_equal(N(ttr.identity()), N(jtr.identity()))
+
+
+@pytest.mark.parametrize("p,labels", [(0.8, 21), (0.6, 5)])
+def test_likelihood_matrix(p, labels):
+    """The explicit L x L matrix: diagonal, off-diagonal and the zeroed
+    unknown column, as the JAX package writes it."""
+    cj = jcfg.SemanticConfig(semantic_measurement_probability=p)
+    ct = tcfg.SemanticConfig(semantic_measurement_probability=p)
+    got = tsem.likelihood_matrix(ct, labels)
+    want = jsem.likelihood_matrix(cj, labels)
+    assert got.dtype == want.dtype and got.shape == (labels, labels)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_projective_sdf_and_traverse_match():
+    """traverse's (R, S, 3) layout exactly; projective_sdf along the walk
+    within 2e-6 m (its norm and dot are reductions whose float32 order
+    XLA may fuse differently)."""
+    rng = np.random.RandomState(6)
+    R, S = 256, 24
+    origin = rng.uniform(-1, 1, 3).astype(np.float32)
+    pts = (origin + rng.uniform(-4, 4, (R, 3))).astype(np.float32)
+    kw = dict(voxel_size=0.2, truncation_distance=0.4, max_ray_length_m=6.0,
+              voxel_carving_enabled=True)
+    sj, ej = jit(jray.setup_rays, origin, pts, np.zeros(R, bool), **kw)
+    vj, okj = jray.traverse(sj, ej, S)
+    vt, okt = tray.traverse(T(N(sj)), T(N(ej)), S)
+    np.testing.assert_array_equal(N(vt), N(vj))
+    np.testing.assert_array_equal(N(okt), N(okj))
+    for o in (origin, np.broadcast_to(origin, (R, 3)).copy()):
+        dj = jit(jtsdf.projective_sdf, o, pts, N(vj), voxel_size=0.2)
+        dt = ttsdf.projective_sdf(T(o), T(pts), T(N(vj)), 0.2)
+        assert dt.shape == (R, S)
+        np.testing.assert_allclose(N(dt), N(dj), rtol=0, atol=2e-6)
+

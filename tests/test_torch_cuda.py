@@ -270,6 +270,14 @@ def plain_kernels():
             setattr(kernels, n, fn)
 
 
+def assert_same_tables(g, ref):
+    """The hash kernels are deterministic and equal their plain versions:
+    runs that inserted the same key streams hold the same tables, slot ids
+    included."""
+    for name in ("table_keys", "table_slots", "block_coords"):
+        assert torch.equal(getattr(g, name), getattr(ref, name)), name
+
+
 def test_main_path_matches_plain(cuda):
     """Three frames through integrate_frame: the kernels' grid equals the
     plain versions' grid block for block, and each kernel launched once per
@@ -285,13 +293,14 @@ def test_main_path_matches_plain(cuda):
     assert kernels.launches == dict(
         dda_job_stream=3, block_meta=3, projective_apply_fused=3,
         projective_sample_update=0, slot_resolve_stream=0, block_rmw_add=0,
-        add_f32=0)
+        add_f32=0, hash_lookup=3, hash_insert=3)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
             proj.integrate_frame(ref, f, cfg, INTR, device=cuda)
     n = int(g.n_blocks)
     assert n == int(ref.n_blocks) > 0 and int(g.overflow) == 0
+    assert_same_tables(g, ref)
     coords = g.block_coords[:n]
     a = blocks.lookup_slots(g, coords, cfg.grid).long()
     b = blocks.lookup_slots(ref, coords, cfg.grid).long()
@@ -557,7 +566,7 @@ def test_unfused_odd_vps_matches_plain(cuda, vps):
     assert kernels.launches == dict(
         dda_job_stream=2, block_meta=2, projective_apply_fused=0,
         projective_sample_update=2, slot_resolve_stream=0, block_rmw_add=2,
-        add_f32=0)
+        add_f32=0, hash_lookup=2, hash_insert=2)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
@@ -685,6 +694,11 @@ def test_ray_paths_match_plain(cuda, model, carve_mode):
     assert kernels.launches["dda_job_stream"] == 3 * (
         streams + (carve_mode == "projective"))
     assert kernels.launches["block_rmw_add"] == 3
+    # H2 for the runs' insert and H1 for the camera cube, once more each
+    # for the projective carve's frame list
+    carve = int(carve_mode == "projective")
+    assert kernels.launches["hash_insert"] == 3 * (1 + carve)
+    assert kernels.launches["hash_lookup"] == 3 * (1 + carve)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
@@ -692,6 +706,7 @@ def test_ray_paths_match_plain(cuda, model, carve_mode):
     n = int(g.n_blocks)
     assert n == int(ref.n_blocks) > 0 and int(g.overflow) == 0
     assert int(g.dropped_rays) == int(ref.dropped_rays)
+    assert_same_tables(g, ref)
     coords = g.block_coords[:n]
     a = blocks.lookup_slots(g, coords, cfg.grid).long()
     b = blocks.lookup_slots(ref, coords, cfg.grid).long()
@@ -850,8 +865,6 @@ def test_unfused_matches_fused(cuda):
     a, b = grids
     assert int(a.n_blocks) == int(b.n_blocks) > 0
     for name in blocks.FIELDS:
-        if name in ("table_keys", "table_slots", "block_coords"):
-            continue     # racing hash claims may differ between runs
         if name in ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor",
                     "updated"):
             coords = a.block_coords[:int(a.n_blocks)]
@@ -1036,6 +1049,7 @@ def assert_same_grid(g, ref, cfg):
         assert int(getattr(g, name)) == int(getattr(ref, name)), name
     n = int(g.n_blocks)
     assert n > 0 and int(g.overflow) == 0
+    assert_same_tables(g, ref)
     coords = g.block_coords[:n]
     a = blocks.lookup_slots(g, coords, cfg.grid).long()
     b = blocks.lookup_slots(ref, coords, cfg.grid).long()
@@ -1192,3 +1206,138 @@ def test_sharded_steps_match_plain(cuda, method):
         ref = step(sharding.create_sharded(cfg, mesh))
     for a, b in zip(got, ref):
         assert_same_grid(a, b, cfg)
+
+
+# ---------------------------------------------------------------------------
+# H1 hash_lookup and H2 hash_insert: the block hash table's probe loops
+# ---------------------------------------------------------------------------
+
+EXT = 512
+
+
+def hash_keys(rng, n, spread):
+    return bhash.sample_keys(rng, n, spread, EXT)
+
+
+HASH_CASES = {
+    # name: (table_size, capacity, prefill keys, batch keys)
+    "512_in_8192": (8192, 4096, lambda r: hash_keys(r, 3000, 12),
+                    lambda r, pre: np.concatenate(
+                        [pre[:256], hash_keys(r, 256, 40)])),
+    "4096_colliding": (8192, 4096, None,
+                       lambda r, pre: bhash.colliding_keys(r, 4096, 8, 8192,
+                                                           EXT)),
+    "past_16376": (32768, 16376, None,
+                   lambda r, pre: hash_keys(r, 20000, 20)),
+    "through_tombstones": (32768, 16376, lambda r: hash_keys(r, 20000, 20),
+                           lambda r, pre: np.concatenate(
+                               [pre[16000:18000], hash_keys(r, 2000, 40)])),
+    "global_bid": (65536, 30000, lambda r: hash_keys(r, 10000, 30),
+                   lambda r, pre: hash_keys(r, 25000, 30)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HASH_CASES))
+def test_hash_kernels_match_plain(cuda, case):
+    """H2 three times from one state: the same tables each time, equal to
+    its plain version's (torch.equal on every array); then H1 against its
+    plain version at MAX_PROBES and at 2 rounds, the complete flag
+    included. The cases: 512 keys into a table holding 3000, 4096 keys in
+    groups of 8 sharing a home, past the capacity of 16376, a second batch
+    probing through the tombstones that leaves, and a 65536-entry table
+    whose bids go to global scratch."""
+    T, cap, pre_fn, batch_fn = HASH_CASES[case]
+    rng = np.random.RandomState(sorted(HASH_CASES).index(case))
+    state = (torch.full((T,), -1, dtype=torch.int32, device=cuda),
+             torch.full((T,), -1, dtype=torch.int32, device=cuda),
+             torch.zeros((cap, 3), dtype=torch.int32, device=cuda),
+             torch.zeros((), dtype=torch.int32, device=cuda))
+    pre = pre_fn(rng) if pre_fn else None
+    if pre is not None:
+        state = kernels.hash_insert_plain(
+            *state, torch.from_numpy(pre).to(cuda),
+            torch.ones(len(pre), dtype=torch.bool, device=cuda), T, cap,
+            512)[:4]
+    keys_np = batch_fn(rng, pre)
+    keys = torch.from_numpy(keys_np).to(cuda)
+    active = torch.from_numpy(rng.rand(len(keys_np)) > 0.05).to(cuda)
+    before = kernels.launches["hash_insert"]
+    runs = [kernels.hash_insert(*state, keys, active, T, cap, 512)
+            for _ in range(3)]
+    assert kernels.launches["hash_insert"] == before + 3
+    ref = kernels.hash_insert_plain(*state, keys, active, T, cap, 512)
+    for r in runs + [ref]:
+        for a, b in zip(r, runs[0]):
+            assert torch.equal(a, b)
+    tk, ts = runs[0][0], runs[0][1]
+    q = torch.cat([keys, torch.from_numpy(hash_keys(rng, 2000, 60)).to(cuda),
+                   torch.tensor([-1, -2, -3], dtype=torch.int32,
+                                device=cuda)])
+    for rounds in (bhash.MAX_PROBES, 2):
+        got = kernels.hash_lookup(tk, ts, q, T, rounds)
+        want = kernels.hash_lookup_plain(tk, ts, q, T, rounds)
+        assert torch.equal(got[0], want[0])
+        assert bool(got[1]) == bool(want[1])
+    if case in ("past_16376", "4096_colliding"):
+        assert int(runs[0][4]) > 0
+
+
+def test_hash_kernels_edges(cuda):
+    """No key: H1 launches nothing and returns an empty list, complete;
+    H2 with every key inactive changes nothing but still writes n_blocks
+    and overflow (0); a lookup through the wrappers of grid/hash.py
+    converts int64 keys."""
+    T, cap = 1024, 512
+    tk = torch.full((T,), -1, dtype=torch.int32, device=cuda)
+    ts = torch.full((T,), -1, dtype=torch.int32, device=cuda)
+    bc = torch.zeros((cap, 3), dtype=torch.int32, device=cuda)
+    nb = torch.full((), 7, dtype=torch.int32, device=cuda)
+    before = kernels.launches["hash_lookup"]
+    slots, complete = kernels.hash_lookup(
+        tk, ts, torch.empty((0,), dtype=torch.int32, device=cuda), T, 64)
+    assert slots.shape == (0,) and bool(complete)
+    assert kernels.launches["hash_lookup"] == before
+    keys = torch.from_numpy(hash_keys(np.random.RandomState(0), 100,
+                                      5)).to(cuda)
+    out = kernels.hash_insert(tk, ts, bc, nb, keys,
+                              torch.zeros(100, dtype=torch.bool, device=cuda),
+                              T, cap, 512)
+    assert torch.equal(out[0], tk) and torch.equal(out[1], ts)
+    assert int(out[3]) == 7 and int(out[4]) == 0
+    out = bhash.insert(tk, ts, bc, nb, keys.long(),
+                       torch.ones(100, dtype=torch.bool, device=cuda), T, cap,
+                       512)
+    got = bhash.lookup(out[0], out[1], keys.long(), T)
+    assert got.dtype == torch.int32 and bool((got >= 7).all())
+
+
+def test_projective_frame_makes_no_host_sync(cuda):
+    """Two projective frames under torch.cuda.set_sync_debug_mode("error")
+    after two warm ones: no operation of the frame waits on the host. A
+    second witness, the profiler's trace of the same frames
+    (utils/syncs.py), shows kernel launches and no synchronizing CUDA
+    call, while it does show the one an .item() makes."""
+    from kimera_semantics_tpu_torch.utils import syncs
+    cfg = config()
+    ds = SyntheticDataset(num_frames=6, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = [ds.frame(i) for i in range(4)]
+    g = blocks.create(cfg, device=cuda)
+    for f in frames[:2]:
+        proj.integrate_frame(g, f, cfg, INTR, device=cuda)
+    torch.cuda.synchronize()
+
+    def checked():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for f in frames[2:]:
+                proj.integrate_frame(g, f, cfg, INTR, device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    found, launches = syncs.host_syncs(checked)
+    assert found == {} and launches > 0
+    control, _ = syncs.host_syncs(
+        lambda: torch.ones(4, device=cuda).sum().item())
+    assert control
+    torch.cuda.synchronize()
+    assert int(g.overflow) == 0 and int(g.n_blocks) > 0

@@ -110,6 +110,30 @@ def test_three_frames_match_jax(width, voxel_size, capacity, budget):
     assert not N(tg.updated)[ct.grid.block_capacity:].any()
 
 
+@pytest.mark.parametrize("stride", [4, 3])
+def test_allocate_from_depth_matches_jax(stride):
+    """The raw-image allocation (every stride-th pixel, exact 1/stride
+    intrinsics, a stride that does not divide the image included) over two
+    frames: the tables and the frame list equal the JAX package's, array
+    for array."""
+    cj, ct = configs(alloc_stride=stride)
+    g = jblocks.create(cj)
+    tg = tblocks.create(ct, device="cpu")
+    for f in frames(2):
+        tf = to_port(f)
+        g, *lj = jproj_model.allocate_from_depth(g, f.depth, f.labels,
+                                                 f.T_G_C, cj, INTR)
+        tg, *lt = tproj_model.allocate_from_depth(tg, tf.depth, tf.labels,
+                                                  tf.T_G_C, ct, TINTR)
+        for name in ("table_keys", "table_slots", "block_coords",
+                     "n_blocks", "overflow"):
+            np.testing.assert_array_equal(N(getattr(tg, name)),
+                                          N(getattr(g, name)), err_msg=name)
+        for a, b in zip(lt, lj):
+            np.testing.assert_array_equal(N(a), N(b))
+    assert int(g.n_blocks) > 20
+
+
 def test_carried_grid_matches_slot_for_slot():
     """A JAX grid after two frames crosses into the port; one more frame in
     both packages then agrees slot for slot."""

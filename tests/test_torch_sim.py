@@ -3,6 +3,7 @@ package's (CPU)."""
 
 import numpy as np
 import jax
+import pytest
 import jax.numpy as jnp
 import torch
 
@@ -73,3 +74,34 @@ def test_synthetic_dataset_matches():
     assert same.mean() >= 0.999
     np.testing.assert_array_equal(N(fb.colors)[same], N(fa.colors)[same])
     assert fb.depth.dtype == torch.float32 and fb.labels.dtype == torch.int32
+
+
+def test_generate_semantic_sdf_matches():
+    """The ground-truth grid over an AABB: the same tables (the blocks are
+    inserted in the same order), weights, and distances within the world
+    SDF's 1e-5; labels and their votes where both packages pick the same
+    nearest object (world_sdf's ties aside); num_objects."""
+    from kimera_semantics_tpu import config as jcfg
+    from kimera_semantics_tpu_torch import config as tcfg
+    cj, ct = (m.FusionConfig(
+        grid=m.GridConfig(voxel_size=0.25, voxels_per_side=8,
+                          block_capacity=256),
+        tsdf=m.TsdfConfig(truncation_distance=0.5))
+        for m in (jcfg, tcfg))
+    jw, tw = jworld.default_eval_world(), tworld.default_eval_world()
+    assert tw.num_objects == jw.num_objects > 0
+    lo, hi = (-2.0, -2.0, -0.5), (2.0, 2.0, 1.5)
+    g = jworld.generate_semantic_sdf(jw, cj, lo, hi, gt_weight=2.0)
+    tg = tworld.generate_semantic_sdf(tw, ct, lo, hi, gt_weight=2.0,
+                                      device="cpu")
+    for name in ("table_keys", "table_slots", "block_coords", "n_blocks",
+                 "overflow", "wsum", "sem_count", "updated"):
+        np.testing.assert_array_equal(N(getattr(tg, name)),
+                                      N(getattr(g, name)), err_msg=name)
+    np.testing.assert_allclose(N(tg.wsdf), N(g.wsdf), rtol=1e-5, atol=2e-5)
+    same = (N(tg.sem_delta) == N(g.sem_delta)).all(axis=0)
+    assert same.mean() > 0.999
+    with pytest.raises(ValueError):
+        tworld.generate_semantic_sdf(tw, ct, (-9.0,) * 3, (9.0,) * 3,
+                                     device="cpu")
+
