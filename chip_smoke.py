@@ -15,9 +15,12 @@ Phases, each of which must complete:
      an empty kernel (csrc/empty.cu) for the launch floor; then the block
      hash table's kernels ([hash]: H1 hash_lookup and H2 hash_insert,
      csrc/hash.cu) against their plain versions with torch.equal on every
-     array at 512 keys in an 8192-entry table, 4096 colliding keys, and
-     capacity 16376 pushed past its capacity and probed through its
-     tombstones, H2 three times from one state with identical tables;
+     array at 512 keys in an 8192-entry table, 4096 colliding keys,
+     16376 keys 10% active, capacity 16376 pushed past its capacity and
+     probed through its tombstones, and a 65536-entry table, H2 three
+     times from one state with identical tables, its instance (shared
+     table up to 32768 entries, generic beyond) read from a trace, H1 at
+     1-64 probe rounds; H2's two instances timed in alternating rounds;
   3. drive the projective main path (models/projective.py integrate_frame)
      at the canonical configuration of bench.py (projective method,
      640x480, 0.05 m voxels, 16^3 blocks) over 4 warm-up and 24 timed
@@ -2092,18 +2095,51 @@ def probe_work(tk, ts, keys, table_size, rounds):
     return probes, hits
 
 
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def alternating_device_times(fns: dict, symbol: str, rounds: int = 3):
+    """Median device ms per call of each fn(), from `rounds` rounds that
+    take the functions in turns (forward, then backward): versions compared
+    within one call, on one card."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            ms = device_time(fns[name], symbol, REPS)
+            if ms is None:
+                fail(f"[hash] no device time for {symbol} ({name})")
+            times[name].append(ms)
+    return {name: median(v) for name, v in times.items()}
+
+
+def insert_kernel_names(fn):
+    """The names of the H2 kernels one call of fn() ran on the device."""
+    return sorted({e.name for e in device_events(trace(fn))
+                   if KERNEL_SYMBOLS["hash_insert"] in e.name})
+
+
 def hash_phase(kernels, dev, report):
     """H1 and H2 against their plain versions on the card, torch.equal on
     every array: 512 keys into an 8192-entry table holding 3000 blocks
     (the frame list's insert at the canonical configuration's table),
-    4096 keys in groups of 8 sharing a home position, and 20000 keys
-    into a 32768-entry table of capacity 16376 (past the capacity: slot
-    overflow and tombstones), then a second batch probing through the
-    tombstones. H2 runs HASH_RUNS times from the same state, and every run
-    must give the same tables. H1 looks up the inserted keys and as many
-    absent ones in MAX_PROBES rounds and in 2 (lookup_bounded's complete
-    flag). Times both kernels at the first case (the projective frame's
-    shapes) and H2 at the others."""
+    4096 keys in groups of 8 sharing a home position, 16376 keys of which
+    10% are active into a 32768-entry table (insert_compacted's budget at
+    serving's capacity), 20000 keys into a 32768-entry table of capacity
+    16376 (past the capacity: slot overflow and tombstones), then a second
+    batch probing through the tombstones, and 25000 keys into a
+    65536-entry table holding 10000 (H2's generic instance). H2 runs
+    HASH_RUNS times from the same state, and every run must give the same
+    tables, with no bid code (a value <= -3) left in them; a trace shows
+    which instance ran (the shared-table one up to 32768 entries, the
+    generic one beyond). H1 looks up the inserted keys and as many absent
+    ones in 1, 2, 7, 8, 9, 16, 17, 20 and MAX_PROBES rounds (its windows of
+    16 cut short, whole and cut in the second; lookup_bounded's complete
+    flag). Times H2 at every case, and with no key active (its fixed part)
+    beside the claim rounds the keys take (kernels.claim_plain's count);
+    and at the first three cases, its shared-table and generic instances
+    (the generic one is the first design) in alternating rounds."""
     import numpy as np
     import torch
     from kimera_semantics_tpu_torch.grid import hash as bhash
@@ -2125,31 +2161,52 @@ def hash_phase(kernels, dev, report):
     batch = np.unique(batch)[:512]
     rng.shuffle(batch)
     over = hash_keys(rng, 20000, 20, ext)
+    wide = hash_keys(rng, 35000, 30, ext)
+    # (label, table size, capacity, batches inserted before, keys, share of
+    # the keys active)
     cases = [("512 keys, table 8192, capacity 4096", 8192, 4096,
-              [prefill], batch),
+              [prefill], batch, 0.95),
              ("4096 colliding keys (8 per home), table 8192, capacity 4096",
               8192, 4096, [],
-              bhash.colliding_keys(rng, 4096, 8, 8192, ext)),
+              bhash.colliding_keys(rng, 4096, 8, 8192, ext), 0.95),
+             ("16376 keys, 10% active, table 32768, capacity 16376", 32768,
+              16376, [], hash_keys(rng, 16376, 20, ext), 0.1),
              ("20000 keys, table 32768, capacity 16376", 32768, 16376, [],
-              over[:20000]),
+              over[:20000], 0.95),
              ("then 4000 keys probing through its tombstones", 32768, 16376,
               [over[:20000]], np.concatenate([over[16000:18000],
                                               hash_keys(rng, 2000, 20,
-                                                        ext)]))]
+                                                        ext)]), 0.95),
+             ("25000 keys, table 65536 holding 10000, capacity 30000",
+              65536, 30000, [wide[:10000]], wide[10000:], 0.95)]
     names = ("table_keys", "table_slots", "block_coords", "n_blocks",
              "overflow")
-    for label, T, cap, before, keys_np in cases:
+    lookup_rounds = (1, 2, 7, 8, 9, 16, 17, 20, bhash.MAX_PROBES)
+    extra = {}
+    for label, T, cap, before, keys_np, share in cases:
         state = table(T, cap)
         for k in before:
             state = kernels.hash_insert_plain(
                 *state, on(k), torch.ones(len(k), dtype=torch.bool,
                                           device=dev), T, cap, ext)[:4]
         keys = on(keys_np)
-        active = on(rng.rand(len(keys_np)) > 0.05)
+        active = on(rng.rand(len(keys_np)) < share)
         args = (*state, keys, active, T, cap, ext)
+        want = "generic" if T > kernels.HASH_SHARED_MAX else "shared"
+        if kernels.hash_insert_instance(T, *state[:3]) != want:
+            fail(f"[hash] {label}: the wrapper picks "
+                 f"{kernels.hash_insert_instance(T, *state[:3])}, not {want}")
+        ran = insert_kernel_names(lambda: kernels.hash_insert(*args))
+        if len(ran) != 1 or (("_smem" in ran[0]) != (want == "shared")):
+            fail(f"[hash] {label}: the trace shows H2 kernels {ran}, not "
+                 f"the {want} instance")
+        inputs = [x.clone() for x in args[:6]]
         runs = [kernels.hash_insert(*args) for _ in range(HASH_RUNS)]
         ref = kernels.hash_insert_plain(*args)
         torch.cuda.synchronize()
+        for x, y in zip(inputs, args[:6]):
+            if not torch.equal(x, y):
+                fail(f"[hash] {label}: H2 modified its inputs")
         for r in runs:
             for n, a, b in zip(names, r, runs[0]):
                 if not torch.equal(a, b):
@@ -2159,15 +2216,19 @@ def hash_phase(kernels, dev, report):
                 fail(f"[hash] {label}: H2 and its plain version differ in "
                      f"{n}")
         tk, ts = runs[0][0], runs[0][1]
+        if bool((tk <= -3).any()) or bool((ts <= -3).any()):
+            fail(f"[hash] {label}: a bid code (<= -3) is left in a table")
         absent = on(hash_keys(rng, len(keys_np), 40, ext))
         q = torch.cat([keys, absent])
-        for rounds in (bhash.MAX_PROBES, 2):
+        complete = {}
+        for rounds in lookup_rounds:
             got = kernels.hash_lookup(tk, ts, q, T, rounds)
-            want = kernels.hash_lookup_plain(tk, ts, q, T, rounds)
-            if not torch.equal(got[0], want[0]) or \
-                    bool(got[1]) != bool(want[1]):
+            want_l = kernels.hash_lookup_plain(tk, ts, q, T, rounds)
+            if not torch.equal(got[0], want_l[0]) or \
+                    bool(got[1]) != bool(want_l[1]):
                 fail(f"[hash] {label}: H1 and its plain version differ at "
                      f"{rounds} rounds")
+            complete[rounds] = bool(got[1])
         n_tomb = int((tk == bhash.TOMBSTONE_KEY).sum())
         n_found = int((kernels.hash_lookup(tk, ts, keys, T,
                                            bhash.MAX_PROBES)[0] >= 0).sum())
@@ -2176,29 +2237,45 @@ def hash_phase(kernels, dev, report):
         print(f"[hash] {label}: {len(keys_np)} keys, {int(active.sum())} "
               f"active; n_blocks {int(runs[0][3])} overflow "
               f"{int(runs[0][4])} tombstones {n_tomb}, {n_found} keys found; "
-              f"{HASH_RUNS} H2 runs identical and equal to the plain version "
-              f"(torch.equal on every array), H1 equal at "
-              f"{bhash.MAX_PROBES} and 2 rounds (complete "
-              f"{bool(kernels.hash_lookup(tk, ts, q, T, 2)[1])} at 2); H2 "
-              f"{t['ms']:.5f} ms device ({t['timed_by']}), plain "
-              f"{t['plain_ms']:.3f} ms")
+              f"H2 {want} instance ({ran[0]}); {HASH_RUNS} H2 runs "
+              f"identical and equal to the plain version (torch.equal on "
+              f"every array, inputs unmodified, no code <= -3 left), H1 "
+              f"equal at {', '.join(map(str, lookup_rounds))} rounds "
+              f"(complete {complete}); H2 {t['ms']:.5f} ms device "
+              f"({t['timed_by']}), {t['wrapper_ms']:.5f} ms per wrapper "
+              f"call, plain {t['plain_ms']:.3f} ms")
+        # H2's fixed part (the same call with no key active: the table's
+        # load, phase 2 and the outputs) and the claim rounds these keys
+        # take, for the time a round costs.
+        idle = (*state, keys, torch.zeros_like(active), T, cap, ext)
+        fixed = device_time(lambda: kernels.hash_insert(*idle),
+                            KERNEL_SYMBOLS["hash_insert"], REPS)
+        rounds = kernels.claim_plain(state[0], keys, active, T)[2]
+        print(f"[hash] {label}: H2 with no key active {fixed:.5f} ms "
+              f"device; {rounds} claim rounds, "
+              f"{(t['ms'] - fixed) / max(rounds, 1) * 1e3:.3f} us a round")
+        extra.setdefault("parts", {})[label] = dict(
+            ms=t["ms"], fixed_ms=fixed, rounds=rounds)
+        if label.startswith(("512", "4096", "16376")):
+            inst = alternating_device_times(
+                {i: (lambda i=i: kernels.hash_insert(*args, instance=i))
+                 for i in ("shared", "generic")},
+                KERNEL_SYMBOLS["hash_insert"])
+            print(f"[hash] {label}: H2 instances in alternating rounds "
+                  f"(median of 3, device ms): shared-table "
+                  f"{inst['shared']:.5f}, generic (the first design) "
+                  f"{inst['generic']:.5f}")
+            extra.setdefault("instances", {})[label] = inst
         if label.startswith("512"):
             # The kernels line's entries, at the projective frame's shapes.
-            # H2 reads the keys and flags, the table words the active keys'
-            # probe chains reach, and both table arrays once more for the
-            # slot assignment's scan; it writes the claimed positions' keys,
-            # each new block's slot and coordinates, and n_blocks and
-            # overflow. H1 reads the keys and the words its probes reach.
-            claimed = int((tk != state[0]).sum())
-            new = int(runs[0][3]) - int(state[3])
-            probes, _ = probe_work(tk, ts, keys[active], T, bhash.MAX_PROBES)
+            # H2 reads the table (keys and slots) and writes it whole once,
+            # copies block_coords (read and written once), and reads the
+            # keys and flags and n_blocks and writes n_blocks and overflow.
+            # H1 reads the keys and the words its probes reach.
             report["hash_insert"] = dict(
-                err=0.0, **t,
-                bytes=(5 * len(keys_np) + 4 * probes + 8 * T + 4 * claimed
-                       + 16 * new + 12),
+                err=0.0, **t, bytes=16 * T + 24 * cap + 5 * len(keys_np) + 12,
                 ops=len(keys_np) * 40 + T * 4)
-            print(f"[hash] H2 at 512 keys: {probes} probes, {claimed} "
-                  f"positions claimed, {new} new blocks: "
+            print(f"[hash] H2 at 512 keys: "
                   f"{report['hash_insert']['bytes']} bytes moved at least")
             probes, hits = probe_work(tk, ts, keys, T, bhash.MAX_PROBES)
             report["hash_lookup"] = dict(
@@ -2214,6 +2291,8 @@ def hash_phase(kernels, dev, report):
                   f"{report['hash_lookup']['ms']:.5f} ms device "
                   f"({report['hash_lookup']['timed_by']}), plain "
                   f"{report['hash_lookup']['plain_ms']:.3f} ms")
+    report["hash_insert"].update(instances=extra["instances"],
+                                 parts=extra["parts"])
 
 
 SYNC_WARM, SYNC_FRAMES = 2, 8     # [syncs]: warm-up and checked frames
@@ -2780,8 +2859,9 @@ def main() -> int:
                  "launch_floor_ms": floor_ms,
                  "launches_by_path": {p: c[name] for p, c in
                                       launches.items()}}
-        if "rounds" in r:
-            entry["rounds"] = r["rounds"]
+        for key in ("rounds", "instances", "parts"):
+            if key in r:
+                entry[key] = r[key]
         if "full" in r:
             v = r["full"]
             entry["full_instance"] = dict(

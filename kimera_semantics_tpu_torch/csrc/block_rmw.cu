@@ -79,41 +79,6 @@ constexpr int BAR_BYTES = 128;  // the ring's mbarriers, ahead of the buffers
 
 enum { ONEHOT = 0, DENSE = 1, PACKED = 2 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
-// aligned; completion counts against the mbarrier `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ bool any_nz(float4 d) {
   return d.x != 0.f || d.y != 0.f || d.z != 0.f || d.w != 0.f;
 }
@@ -352,7 +317,7 @@ __global__ void __launch_bounds__(C / 4)
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(bar0 + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 

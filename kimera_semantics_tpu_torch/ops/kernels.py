@@ -749,11 +749,21 @@ def add_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 # H1, H2: the block hash table's probe loops
 # ---------------------------------------------------------------------------
 
-# H2 keeps its bid array in shared memory up to this many table entries
-# (128 KiB); larger tables bid in global scratch.
-HASH_SMEM_ENTRIES = 32768
+# H2's instances (csrc/hash.cu), chosen by the table's size: "shared" keeps
+# table_keys in shared memory and bids with codes in the key words
+# (HASH_SHARED_MIN <= table_size <= HASH_SHARED_MAX, tensors on 16-byte
+# boundaries); "generic", the first design, works in place on copies of the
+# tables and bids into a bid array (in shared memory up to HASH_SHARED_MAX
+# entries, in global scratch beyond).
+HASH_INSERT_INSTANCES = ("shared", "generic")
+HASH_SHARED_MIN, HASH_SHARED_MAX = 128, 32768
+# Past this many keys (16 a thread) the shared-table instance keeps the
+# probe state outside registers, in shared memory where it fits beside the
+# table, else in a global scratch that the wrapper allocates.
+_H2_REGISTER_KEYS = 16 * 1024
+_GENERIC_GLOBAL_BID, _GENERIC_SMEM_BID, _SHARED_TABLE = 0, 1, 2
 HashInsertParams = _struct("HashInsertParams", [
-    "n", "table_size", "capacity", "ext", "max_probes", "bid_in_smem"])
+    "n", "table_size", "capacity", "ext", "max_probes", "instance"])
 
 
 def hash_lookup_plain(table_keys, table_slots, keys, table_size: int,
@@ -784,12 +794,15 @@ def _check_table(table_keys, table_slots, table_size: int, dev):
     _check(table_slots, "table_slots", torch.int32, (table_size,), dev)
 
 
-def hash_lookup(table_keys, table_slots, keys, table_size: int, rounds: int):
+def hash_lookup(table_keys, table_slots, keys, table_size: int,
+                rounds: int):
     """Key -> slot by at most `rounds` linear probe rounds from
     mix(key) & (table_size - 1); a probe ends at its key or at EMPTY_KEY
     (not at TOMBSTONE_KEY). keys (N,) int32. Returns (slots (N,) int32, -1
     where missing or unfinished; complete, a 0-d bool on the device, false
-    if any probe was still running after `rounds`)."""
+    if any probe was still running after `rounds`). H1 serves each key with
+    16 lanes, each window of 16 positions loaded at once and the first that
+    ends the probe picked by a ballot."""
     if _on_cpu(keys):
         return hash_lookup_plain(table_keys, table_slots, keys, table_size,
                                  rounds)
@@ -812,12 +825,21 @@ def hash_lookup(table_keys, table_slots, keys, table_size: int, rounds: int):
 
 def hash_insert_plain(table_keys, table_slots, block_coords, n_blocks, keys,
                       active, table_size: int, capacity: int, extent: int):
-    """Plain version of H2. Each probe round, of the pending keys bidding
-    for one EMPTY or TOMBSTONE position the one of largest batch index
-    wins (scatter_reduce "amax"), the rule of XLA:CPU's and torch's CPU
-    scatter; the rounds end early (a host sync per round) once no key is
-    pending. Scatters go through one trash entry past the table's and the
-    coordinates' last, which is then cut off."""
+    """Plain version of H2: claim_plain's rounds, then assign_slots_plain."""
+    tk, pending, _ = claim_plain(table_keys, keys, active, table_size)
+    tk, ts, bc, nb, slot_overflow = assign_slots_plain(
+        tk, table_slots, block_coords, n_blocks, capacity, extent)
+    return tk, ts, bc, nb, slot_overflow + pending.sum(dtype=torch.int32)
+
+
+def claim_plain(table_keys, keys, active, table_size: int):
+    """H2's first phase as tensor ops. Each probe round, of the pending keys
+    bidding for one EMPTY or TOMBSTONE position the one of largest batch
+    index wins (scatter_reduce "amax"), the rule of XLA:CPU's and torch's
+    CPU scatter; the rounds end early (a host sync per round) once no key is
+    pending. Scatters go through one trash entry past the table's last,
+    which is then cut off. Returns (table_keys, the keys still pending, the
+    rounds run)."""
     mask = table_size - 1
     dev = keys.device
     N = keys.shape[0]
@@ -826,9 +848,11 @@ def hash_insert_plain(table_keys, table_slots, block_coords, n_blocks, keys,
     idx = (bhash.mix(keys) & mask).long()
     pending = active.clone()
     batch = torch.arange(N, device=dev)
+    rounds = 0
     for _ in range(bhash.MAX_PROBES):
         if not bool(pending.any()):
             break
+        rounds += 1
         k = tk[idx]
         pending = pending & (k != keys)
         bidding = ((k == bhash.EMPTY_KEY) | (k == bhash.TOMBSTONE_KEY)) \
@@ -841,10 +865,7 @@ def hash_insert_plain(table_keys, table_slots, block_coords, n_blocks, keys,
         tk[torch.where(winner, idx, table_size)] = keys
         pending = pending & (tk[idx] != keys)
         idx = torch.where(pending, (idx + 1) & mask, idx)
-    tk, ts, bc, nb, slot_overflow = assign_slots_plain(
-        tk[:table_size], table_slots, block_coords, n_blocks, capacity,
-        extent)
-    return tk, ts, bc, nb, slot_overflow + pending.sum(dtype=torch.int32)
+    return tk[:table_size], pending, rounds
 
 
 def assign_slots_plain(table_keys, table_slots, block_coords, n_blocks,
@@ -869,17 +890,32 @@ def assign_slots_plain(table_keys, table_slots, block_coords, n_blocks,
             (is_new & ~fits).sum(dtype=torch.int32))
 
 
+def hash_insert_instance(table_size: int, *tensors) -> str:
+    """H2's instance for a table of `table_size` entries: "shared" where
+    HASH_SHARED_MIN <= table_size <= HASH_SHARED_MAX (every table of the
+    port's configurations) and every tensor given lies on a 16-byte
+    boundary, else "generic". Decided on the host, from shapes and
+    addresses: no sync."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return ("shared" if aligned and HASH_SHARED_MIN <= table_size
+            <= HASH_SHARED_MAX else "generic")
+
+
 def hash_insert(table_keys, table_slots, block_coords, n_blocks, keys,
-                active, table_size: int, capacity: int, extent: int):
+                active, table_size: int, capacity: int, extent: int,
+                instance: str | None = None):
     """Batch-insert packed block keys and give new blocks slots (H2, one
-    CTA). keys (N,) int32, active (N,) bool; n_blocks a 0-d int32 on the
-    device. Returns new (table_keys, table_slots, block_coords, n_blocks,
-    overflow), the inputs unmodified: a key claims the first EMPTY or
-    TOMBSTONE position of its probe, the largest batch index winning a
-    contested one; new positions take slots n_blocks, n_blocks + 1, ... in
-    table order below `capacity`, the rest roll back to TOMBSTONE_KEY;
-    overflow counts those and the keys still unplaced after MAX_PROBES
-    rounds."""
+    CTA). keys (N,) int32, active (N,) bool, the active keys non-negative
+    (H2 bids with negative codes in the table's key words); n_blocks a 0-d
+    int32 on the device. Returns new (table_keys, table_slots,
+    block_coords, n_blocks, overflow), the inputs unmodified: a key claims
+    the first EMPTY or TOMBSTONE position of its probe, the largest batch
+    index winning a contested one; new positions take slots n_blocks,
+    n_blocks + 1, ... in table order below `capacity`, the rest roll back
+    to TOMBSTONE_KEY; overflow counts those and the keys still unplaced
+    after MAX_PROBES rounds. `instance` (HASH_INSERT_INSTANCES) overrides
+    hash_insert_instance's choice. The shared-table instance writes fresh
+    outputs itself; the generic one works on copies of the inputs."""
     if _on_cpu(keys):
         return hash_insert_plain(table_keys, table_slots, block_coords,
                                  n_blocks, keys, active, table_size,
@@ -891,21 +927,39 @@ def hash_insert(table_keys, table_slots, block_coords, n_blocks, keys,
     _check(n_blocks, "n_blocks", torch.int32, (), dev)
     _check(keys, "keys", torch.int32, (N,), dev)
     _check(active, "active", torch.bool, (N,), dev)
-    tk, ts, bc = table_keys.clone(), table_slots.clone(), block_coords.clone()
+    if instance is None:
+        instance = hash_insert_instance(table_size, table_keys, table_slots,
+                                        block_coords)
+    if instance not in HASH_INSERT_INSTANCES:
+        raise ValueError(f"instance {instance!r} not in "
+                         f"{HASH_INSERT_INSTANCES}")
     nb = torch.empty((), dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
-    state = torch.empty((max(N, 1),), dtype=torch.int32, device=dev)
-    in_smem = table_size <= HASH_SMEM_ENTRIES
-    bid = None if in_smem else torch.full((table_size,), -1,
-                                          dtype=torch.int32, device=dev)
+    state = bid = None
+    if instance == "generic":
+        tk, ts = table_keys.clone(), table_slots.clone()
+        bc = block_coords.clone()
+        state = torch.empty((max(N, 1),), dtype=torch.int32, device=dev)
+        code = _GENERIC_SMEM_BID
+        if table_size > HASH_SHARED_MAX:
+            code = _GENERIC_GLOBAL_BID
+            bid = torch.full((table_size,), -1, dtype=torch.int32,
+                             device=dev)
+    else:
+        code = _SHARED_TABLE
+        tk, ts = torch.empty_like(table_keys), torch.empty_like(table_slots)
+        bc = torch.empty_like(block_coords)
+        if N > _H2_REGISTER_KEYS:
+            state = torch.empty((N,), dtype=torch.int32, device=dev)
     p = HashInsertParams(n=N, table_size=table_size, capacity=capacity,
                          ext=extent, max_probes=bhash.MAX_PROBES,
-                         bid_in_smem=int(in_smem))
+                         instance=code)
     fn = _build.bind("hash", "ksd_hash_insert",
-                     (ctypes.c_void_p,) * 8 + (HashInsertParams,)
+                     (ctypes.c_void_p,) * 11 + (HashInsertParams,)
                      + (ctypes.c_void_p,) * 3)
-    _raise_on(fn(*(_ptr(x) for x in (tk, ts, bc, n_blocks, keys, active,
-                                      state, bid)), p, _ptr(nb),
-                 _ptr(overflow), _stream(dev)), "hash_insert")
+    _raise_on(fn(*(_ptr(x) for x in (table_keys, table_slots, block_coords,
+                                      n_blocks, keys, active, state, bid, tk,
+                                      ts, bc)), p, _ptr(nb), _ptr(overflow),
+                 _stream(dev)), "hash_insert")
     launches["hash_insert"] += 1
     return tk, ts, bc, nb, overflow

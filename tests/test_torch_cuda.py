@@ -1220,33 +1220,59 @@ def hash_keys(rng, n, spread):
 
 
 HASH_CASES = {
-    # name: (table_size, capacity, prefill keys, batch keys)
+    # name: (table_size, capacity, prefill keys, batch keys, share active)
     "512_in_8192": (8192, 4096, lambda r: hash_keys(r, 3000, 12),
                     lambda r, pre: np.concatenate(
-                        [pre[:256], hash_keys(r, 256, 40)])),
+                        [pre[:256], hash_keys(r, 256, 40)]), 0.95),
+    "900_in_4096": (4096, 2048, None,
+                    lambda r, pre: hash_keys(r, 900, 12), 0.95),
     "4096_colliding": (8192, 4096, None,
                        lambda r, pre: bhash.colliding_keys(r, 4096, 8, 8192,
-                                                           EXT)),
+                                                           EXT), 0.95),
+    "16376_sparse": (32768, 16376, None,
+                     lambda r, pre: hash_keys(r, 16376, 20), 0.1),
     "past_16376": (32768, 16376, None,
-                   lambda r, pre: hash_keys(r, 20000, 20)),
+                   lambda r, pre: hash_keys(r, 20000, 20), 0.95),
     "through_tombstones": (32768, 16376, lambda r: hash_keys(r, 20000, 20),
                            lambda r, pre: np.concatenate(
-                               [pre[16000:18000], hash_keys(r, 2000, 40)])),
+                               [pre[16000:18000], hash_keys(r, 2000, 40)]),
+                           0.95),
+    "state_global": (32768, 16376, None,
+                     lambda r, pre: hash_keys(r, 30000, 20), 0.95),
     "global_bid": (65536, 30000, lambda r: hash_keys(r, 10000, 30),
-                   lambda r, pre: hash_keys(r, 25000, 30)),
+                   lambda r, pre: hash_keys(r, 25000, 30), 0.95),
 }
+LOOKUP_ROUNDS = (1, 2, 7, 8, 9, 16, 17, 20, bhash.MAX_PROBES)
+
+
+def assert_lookups_match(tk, ts, q, T):
+    """H1 against its plain version at LOOKUP_ROUNDS, the complete flag
+    included."""
+    for rounds in LOOKUP_ROUNDS:
+        want = kernels.hash_lookup_plain(tk, ts, q, T, rounds)
+        got = kernels.hash_lookup(tk, ts, q, T, rounds)
+        assert torch.equal(got[0], want[0]), rounds
+        assert bool(got[1]) == bool(want[1]), rounds
 
 
 @pytest.mark.parametrize("case", sorted(HASH_CASES))
 def test_hash_kernels_match_plain(cuda, case):
     """H2 three times from one state: the same tables each time, equal to
-    its plain version's (torch.equal on every array); then H1 against its
-    plain version at MAX_PROBES and at 2 rounds, the complete flag
-    included. The cases: 512 keys into a table holding 3000, 4096 keys in
-    groups of 8 sharing a home, past the capacity of 16376, a second batch
-    probing through the tombstones that leaves, and a 65536-entry table
-    whose bids go to global scratch."""
-    T, cap, pre_fn, batch_fn = HASH_CASES[case]
+    its plain version's (torch.equal on every array), the inputs
+    unmodified and no bid code (<= -3) left; the shared-table instance up
+    to 32768 entries, the generic one beyond. Then H1 against its plain
+    version at LOOKUP_ROUNDS (windows of 16 cut short, whole, and cut in
+    the second), the complete flag
+    included, over the batch, absent keys, -1, -2, -3 and the keys homed
+    in the table's last 8 positions (their windows wrap). The cases: 512
+    keys into a table holding 3000 (512 threads), 900 keys (1024 threads,
+    a key each), 4096 keys in groups of 8 sharing a
+    home, 16376 keys 10% active (insert_compacted's budget at serving's
+    capacity), past the capacity of 16376 (20000 keys: the probe state in
+    shared memory after the table; 30000: in global scratch), a second
+    batch probing through the tombstones that leaves, and a 65536-entry
+    table whose bids go to global scratch."""
+    T, cap, pre_fn, batch_fn, share = HASH_CASES[case]
     rng = np.random.RandomState(sorted(HASH_CASES).index(case))
     state = (torch.full((T,), -1, dtype=torch.int32, device=cuda),
              torch.full((T,), -1, dtype=torch.int32, device=cuda),
@@ -1258,9 +1284,12 @@ def test_hash_kernels_match_plain(cuda, case):
             *state, torch.from_numpy(pre).to(cuda),
             torch.ones(len(pre), dtype=torch.bool, device=cuda), T, cap,
             512)[:4]
+    assert kernels.hash_insert_instance(T, *state[:3]) == (
+        "generic" if T > kernels.HASH_SHARED_MAX else "shared")
     keys_np = batch_fn(rng, pre)
     keys = torch.from_numpy(keys_np).to(cuda)
-    active = torch.from_numpy(rng.rand(len(keys_np)) > 0.05).to(cuda)
+    active = torch.from_numpy(rng.rand(len(keys_np)) < share).to(cuda)
+    inputs = [x.clone() for x in state]
     before = kernels.launches["hash_insert"]
     runs = [kernels.hash_insert(*state, keys, active, T, cap, 512)
             for _ in range(3)]
@@ -1269,15 +1298,15 @@ def test_hash_kernels_match_plain(cuda, case):
     for r in runs + [ref]:
         for a, b in zip(r, runs[0]):
             assert torch.equal(a, b)
+    for a, b in zip(inputs, state):
+        assert torch.equal(a, b)
     tk, ts = runs[0][0], runs[0][1]
+    assert not bool((tk <= -3).any()) and not bool((ts <= -3).any())
+    homes = bhash.mix(keys) & (T - 1)
     q = torch.cat([keys, torch.from_numpy(hash_keys(rng, 2000, 60)).to(cuda),
                    torch.tensor([-1, -2, -3], dtype=torch.int32,
-                                device=cuda)])
-    for rounds in (bhash.MAX_PROBES, 2):
-        got = kernels.hash_lookup(tk, ts, q, T, rounds)
-        want = kernels.hash_lookup_plain(tk, ts, q, T, rounds)
-        assert torch.equal(got[0], want[0])
-        assert bool(got[1]) == bool(want[1])
+                                device=cuda), keys[homes >= T - 8]])
+    assert_lookups_match(tk, ts, q, T)
     if case in ("past_16376", "4096_colliding"):
         assert int(runs[0][4]) > 0
 
@@ -1286,7 +1315,12 @@ def test_hash_kernels_edges(cuda):
     """No key: H1 launches nothing and returns an empty list, complete;
     H2 with every key inactive changes nothing but still writes n_blocks
     and overflow (0); a lookup through the wrappers of grid/hash.py
-    converts int64 keys."""
+    converts int64 keys. A table entering with keys at slot -1 (they take
+    slots as new entries), capacity 301 (block_coords not a multiple of 16
+    bytes) and n_blocks 5: every H2 instance equals the plain version;
+    tensors off a 16-byte boundary take the generic instance; the shared
+    instance refuses a table past 32768 entries (raises, runs nothing).
+    H1 at every LOOKUP_ROUNDS, over keys homed in the last 8 positions."""
     T, cap = 1024, 512
     tk = torch.full((T,), -1, dtype=torch.int32, device=cuda)
     ts = torch.full((T,), -1, dtype=torch.int32, device=cuda)
@@ -1309,6 +1343,40 @@ def test_hash_kernels_edges(cuda):
                        512)
     got = bhash.lookup(out[0], out[1], keys.long(), T)
     assert got.dtype == torch.int32 and bool((got >= 7).all())
+
+    rng = np.random.RandomState(1)
+    T, cap = 1024, 301
+    kk = torch.from_numpy(hash_keys(rng, 300, 8)).to(cuda)
+    tk = torch.full((T,), -1, dtype=torch.int32, device=cuda)
+    ts = torch.full((T,), -1, dtype=torch.int32, device=cuda)
+    tk[7], tk[900], ts[900] = kk[0], kk[1], 3
+    state = (tk, ts, torch.from_numpy(rng.randint(-9, 9, (cap, 3)).astype(
+        np.int32)).to(cuda), torch.full((), 5, dtype=torch.int32,
+                                        device=cuda))
+    args = (*state, kk[2:200], torch.ones(198, dtype=torch.bool,
+                                          device=cuda), T, cap, 512)
+    ref = kernels.hash_insert_plain(*args)
+    for inst in kernels.HASH_INSERT_INSTANCES:
+        for a, b in zip(kernels.hash_insert(*args, instance=inst), ref):
+            assert torch.equal(a, b), inst
+    assert int(ref[3]) == 5 + 198 + 1
+    buf = torch.full((T + 1,), -1, dtype=torch.int32, device=cuda)
+    assert kernels.hash_insert_instance(T, buf[1:], ts, state[2]) == \
+        "generic"
+    got = kernels.hash_insert(buf[1:], *args[1:])
+    for a, b in zip(got, kernels.hash_insert_plain(buf[1:], *args[1:])):
+        assert torch.equal(a, b)
+    big = 65536
+    with pytest.raises(RuntimeError):
+        kernels.hash_insert(
+            torch.full((big,), -1, dtype=torch.int32, device=cuda),
+            torch.full((big,), -1, dtype=torch.int32, device=cuda),
+            *args[2:6], big, cap, 512, instance="shared")
+    tk2, ts2 = ref[0], ref[1]
+    homes = bhash.mix(kk) & (T - 1)
+    q = torch.cat([kk, kk[homes >= T - 8], torch.tensor(
+        [-1, -2, -3], dtype=torch.int32, device=cuda)])
+    assert_lookups_match(tk2, ts2, q, T)
 
 
 def test_projective_frame_makes_no_host_sync(cuda):

@@ -51,25 +51,164 @@ def empty_table(table_size, capacity, n_blocks=0):
             np.zeros((capacity, 3), np.int32), np.int32(n_blocks))
 
 
+# -- numpy models of the kernels' protocols (csrc/hash.cu) -------------------
+# The only check of the CUDA kernels' logic that runs without a card: each
+# model follows its kernel step by step and is held to the JAX package.
+
+WARPS, LANES = 32, 32
+H1_LANES = 16        # H1's group: lanes and probe positions a key a window
+
+
+def model_claim_rounds(table_keys, keys, active, table_size, rng):
+    """H2's shared-table rounds: a bid is the code -3 - j in the key word
+    itself. Pass A visits the pending keys in a shuffled order (the
+    threads race), each reading its position and, where it finds EMPTY,
+    TOMBSTONE or a code, lowering it to its own code (atomicMin). Pass B,
+    in another shuffled order: the key whose code stands there writes
+    itself; a bidder finding the winner's key, or the winner's code c with
+    keys[-3 - c] its own key, is placed (a duplicate won); every other
+    pending key steps. Returns (table keys, keys still pending)."""
+    T = np.array(table_keys, np.int64)
+    mask = table_size - 1
+    st = np.where(active, home(keys, table_size), -1).astype(np.int64)
+    bid = np.zeros(len(keys), bool)
+    for _ in range(thash.MAX_PROBES):
+        pend = np.flatnonzero(st >= 0)
+        if not len(pend):
+            break
+        bid[:] = False
+        for j in rng.permutation(pend):              # pass A
+            k = T[st[j]]
+            if k == keys[j]:
+                st[j] = -1
+            elif k < 0:
+                T[st[j]] = min(k, -3 - j)
+                bid[j] = True
+        for j in rng.permutation(pend):              # pass B
+            if st[j] < 0:
+                continue
+            if bid[j]:
+                v = T[st[j]]
+                if v == -3 - j:
+                    T[st[j]] = keys[j]
+                    st[j] = -1
+                    continue
+                if v == keys[j] or (v <= -3 and keys[-3 - v] == keys[j]):
+                    st[j] = -1
+                    continue
+            st[j] = (st[j] + 1) & mask
+        assert T.min() >= thash.TOMBSTONE_KEY        # no code survives
+    return T.astype(np.int32), int((st >= 0).sum())
+
+
+def popc(x):
+    return bin(x).count("1")
+
+
+def model_assign_slots(tk, ts, bc, n_blocks, capacity):
+    """H2's phase 2: warp w walks its range of quads (4 positions a lane,
+    32 lanes a step); four ballots a step, __popc of each, a scan over the
+    warps' counts, then entry e of lane l ranks base + popc(b & below(l))
+    over the four ballots + the lane's new entries before e."""
+    tk, ts, bc = tk.copy(), ts.copy(), bc.copy()
+    quads = len(tk) // 4
+    per_warp = -(-quads // (WARPS * LANES)) * LANES
+    new = (tk != thash.EMPTY_KEY) & (tk != thash.TOMBSTONE_KEY) & (ts < 0)
+
+    def steps(w):
+        lo = min(w * per_warp, quads)
+        hi = min(lo + per_warp, quads)
+        for q0 in range(lo, hi, LANES):
+            q = [q0 + lane for lane in range(LANES)]
+            bits = [[q[lane] < hi and bool(new[4 * q[lane] + e])
+                     for lane in range(LANES)] for e in range(4)]
+            ballots = [sum(b << lane for lane, b in enumerate(bits[e]))
+                       for e in range(4)]
+            yield q, hi, bits, ballots
+
+    counts = [sum(popc(b) for _, _, _, bl in steps(w) for b in bl)
+              for w in range(WARPS)]
+    base = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for w in range(WARPS):
+        rank = int(base[w])
+        for q, hi, bits, ballots in steps(w):
+            for lane in range(LANES):
+                r = rank + sum(popc(b & ((1 << lane) - 1)) for b in ballots)
+                for e in range(4):
+                    if not bits[e][lane]:
+                        continue
+                    i, slot = 4 * q[lane] + e, int(n_blocks) + r
+                    if slot < capacity:
+                        ts[i] = slot
+                        bc[slot] = np.asarray(jhash.unpack_block_key(
+                            jnp.asarray(tk[i]), EXT))
+                    else:
+                        tk[i] = thash.TOMBSTONE_KEY
+                    r += 1
+            rank += sum(popc(b) for b in ballots)
+    total = sum(counts)
+    fit = max(0, min(total, capacity - int(n_blocks)))
+    return tk, ts, bc, np.int32(int(n_blocks) + fit), total - fit
+
+
+def model_insert(state, keys, active, table_size, capacity, seed):
+    tk, pending = model_claim_rounds(state[0], keys, active, table_size,
+                                     np.random.RandomState(seed))
+    tk, ts, bc, nb, slot_overflow = model_assign_slots(
+        tk, np.asarray(state[1]), np.asarray(state[2]), state[3], capacity)
+    return tk, ts, bc, nb, np.int32(slot_overflow + pending)
+
+
+def model_lookup(tk, ts, keys, table_size, rounds, lanes=H1_LANES):
+    """H1's windows: `lanes` positions a key at a time, the first lane (in
+    probe order, among the first rounds - window lanes) holding the key or
+    EMPTY gives the result. Returns (slots, complete)."""
+    mask = table_size - 1
+    start = home(keys, table_size).astype(np.int64)
+    out = np.full(len(keys), -1, np.int32)
+    pending = np.ones(len(keys), bool)
+    for w in range(0, rounds, lanes):
+        n = min(lanes, rounds - w)
+        pos = (start[:, None] + w + np.arange(n)) & mask
+        k, s = tk[pos], ts[pos]
+        stop = ((k == keys[:, None]) | (k == thash.EMPTY_KEY)) \
+            & pending[:, None]
+        found = stop.any(axis=1)
+        at = stop.argmax(axis=1)
+        rows = np.flatnonzero(found)
+        hit = k[rows, at[rows]] == keys[rows]
+        out[rows] = np.where(hit, s[rows, at[rows]], -1)
+        pending &= ~found
+    return out, not pending.any()
+
+
 def both_insert(state, keys, active, table_size, capacity):
-    """JAX insert and the port's insert from the same numpy state; asserts
-    every array equal and returns the (numpy) result."""
+    """JAX insert, the port's insert and the model of H2 from the same
+    numpy state; asserts every array equal and returns the (numpy)
+    result."""
     rj = jhash.insert(*(jnp.asarray(x) for x in state), jnp.asarray(keys),
                       jnp.asarray(active), table_size, capacity, EXT)
     rt = thash.insert(*(torch.tensor(np.asarray(x)) for x in state),
                       torch.tensor(keys), torch.tensor(active), table_size,
                       capacity, EXT)
-    for name, a, b in zip(NAMES, rj, rt):
+    rm = model_insert(state, keys, active, table_size, capacity, len(keys))
+    for name, a, b, c in zip(NAMES, rj, rt, rm):
         np.testing.assert_array_equal(N(b), np.asarray(a), err_msg=name)
+        np.testing.assert_array_equal(c, np.asarray(a),
+                                      err_msg=f"model of H2: {name}")
     return tuple(np.asarray(a) for a in rj)
 
 
 def assert_lookups_equal(res, queries, table_size):
+    """The port's lookup and the model of H1 against JAX lookup."""
     got = thash.lookup(torch.tensor(res[0]), torch.tensor(res[1]),
                        torch.tensor(queries), table_size)
     want = jhash.lookup(jnp.asarray(res[0]), jnp.asarray(res[1]),
                         jnp.asarray(queries), table_size)
     np.testing.assert_array_equal(N(got), np.asarray(want))
+    m, _ = model_lookup(res[0], res[1], queries, table_size,
+                        thash.MAX_PROBES)
+    np.testing.assert_array_equal(m, np.asarray(want))
     return N(got)
 
 
@@ -175,15 +314,21 @@ def test_nearly_full_table_exhausts_max_probes():
     assert_lookups_equal(res2, keys, T)
 
 
-@pytest.mark.parametrize("rounds", [1, 2, 64])
+@pytest.mark.parametrize("rounds", [1, 2, 7, 8, 9, 16, 17, 20, 64])
 def test_lookup_bounded_complete(rounds):
     """lookup_bounded in too few rounds reports complete False and -1 for
-    the unfinished keys; in enough rounds it equals lookup."""
+    the unfinished keys; in enough rounds it equals lookup. The model of
+    H1 agrees at every `rounds`, its windows cut short (in the first or the
+    second), whole, and wrapping past the table's end (keys homed in its
+    last 8 positions are among the queries)."""
     rng = np.random.RandomState(6)
     T, cap = 128, 128
     keys = distinct_keys(rng, 150, 10)
     res = both_insert(empty_table(T, cap), keys[:110], np.ones(110, bool), T,
                       cap)
+    pool = distinct_keys(rng, 3000, 20)
+    keys = np.concatenate([keys, pool[home(pool, T) >= T - 8][:40]])
+    assert (home(keys, T) >= T - 8).sum() >= 20
     tk, ts = torch.tensor(res[0]), torch.tensor(res[1])
     slots, complete = thash.lookup_bounded(tk, ts, torch.tensor(keys), T,
                                            rounds)
@@ -200,10 +345,33 @@ def test_lookup_bounded_complete(rounds):
         idx = np.where(done, idx, (idx + 1) & (T - 1))
     np.testing.assert_array_equal(N(slots), want)
     assert bool(complete) == bool(done.all())
+    m, m_complete = model_lookup(res[0], res[1], keys, T, rounds)
+    np.testing.assert_array_equal(m, want)
+    assert m_complete == bool(done.all())
     if rounds == 64:
         np.testing.assert_array_equal(N(slots), full)
     else:
         assert not bool(complete)
+
+
+def test_table_entering_with_keys_at_slot_minus_one():
+    """Keys already in the table with slot -1 (claimed, never given a
+    slot) are new entries to phase 2 like this call's claims: they take
+    slots in table order, in the JAX package, the port and the model of
+    H2; one past the capacity rolls back to TOMBSTONE."""
+    rng = np.random.RandomState(11)
+    T, cap = 512, 150
+    keys = distinct_keys(rng, 160, 10)
+    tk, ts, bc, nb = empty_table(T, cap, 3)
+    homes = home(keys[:4], T)
+    tk[homes] = keys[:4]
+    ts[homes[3]] = 1
+    bc[:] = rng.randint(-9, 9, bc.shape)
+    res = both_insert((tk, ts, bc, nb), keys[4:], np.ones(156, bool), T, cap)
+    assert int(res[3]) == cap and int(res[4]) == 3 + 3 + 156 - cap
+    assert (res[1][homes[:3]] >= 3).all() or \
+        (res[0][homes[:3]] == thash.TOMBSTONE_KEY).any()
+    assert_lookups_equal(res, keys, T)
 
 
 def test_kernel_wrappers_take_the_plain_versions_on_the_cpu():
@@ -308,3 +476,94 @@ def test_host_sync_witness_on_the_cpu():
     found, launches = syncs.host_syncs(
         lambda: ran.append(int(torch.ones(3).sum().item())))
     assert ran == [3] and found == {} and launches == 0
+
+
+# -- the callers' keys: H2's shared-table instance bids with codes <= -3 in
+# the key words, so every active key that reaches it must be >= 0.
+
+def _world_edge_config(extent=2):
+    """2 m blocks in a world of +-`extent` blocks (+-4 m at 2): rays of
+    up to 8 m from near the origin leave it."""
+    from kimera_semantics_tpu_torch import config as tcfg
+    return tcfg.FusionConfig(
+        grid=tcfg.GridConfig(voxel_size=0.25, voxels_per_side=8,
+                             block_capacity=256, world_extent_blocks=extent),
+        tsdf=tcfg.TsdfConfig(truncation_distance=0.5, max_ray_length_m=8.0),
+        pipeline=tcfg.PipelineConfig(max_rays=64, block_budget=256,
+                                     alloc_stride=4, max_steps=128,
+                                     dedup_table_size=1 << 12,
+                                     sem_stage_mode="dense"))
+
+
+def _rays_out_of_the_world(rng, n):
+    """n ray end points 5-7 m from the origin in random directions."""
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (d * rng.uniform(5.0, 7.0, (n, 1))).astype(np.float32)
+
+
+def _drive_integrate(rng):
+    from kimera_semantics_tpu_torch.grid import blocks as tblocks
+    from kimera_semantics_tpu_torch.ops import integrate as tinteg
+    cfg = _world_edge_config()
+    R = cfg.pipeline.max_rays
+    pts = torch.from_numpy(_rays_out_of_the_world(rng, R))
+    tinteg.integrate_ray_batch(
+        tblocks.create(cfg, device="cpu"), cfg, torch.zeros(3), pts,
+        torch.ones(R), torch.full((R, 3), 100.0),
+        torch.zeros(R, dtype=torch.int32), torch.zeros(R, dtype=torch.bool),
+        torch.ones(R, dtype=torch.bool))
+
+
+def _drive_frame_list(rng):
+    from kimera_semantics_tpu_torch.core import camera as tcam
+    from kimera_semantics_tpu_torch.grid import blocks as tblocks
+    from kimera_semantics_tpu_torch.models import projective as tproj
+    cfg = _world_edge_config()
+    intr = tcam.PinholeIntrinsics(fx=30.0, fy=30.0, cx=19.5, cy=14.5,
+                                  width=40, height=30)
+    depth = torch.from_numpy(rng.uniform(5.0, 7.0, (30, 40)).astype(
+        np.float32))
+    tproj.allocate_from_depth(
+        tblocks.create(cfg, device="cpu"), depth,
+        torch.zeros((30, 40), dtype=torch.int32), torch.eye(4), cfg, intr)
+
+
+def _drive_allocate_blocks(rng):
+    from kimera_semantics_tpu_torch.grid import blocks as tblocks
+    cfg = _world_edge_config()
+    coords = torch.from_numpy(rng.randint(-5, 5, (200, 3)).astype(np.int32))
+    coords[:20] = torch.tensor([-600, 0, 0], dtype=torch.int32)
+    keys = thash.pack_block_coords(coords, 2)
+    assert bool((keys < 0).any())   # what the mask must keep away from H2
+    tblocks.allocate_blocks(tblocks.create(cfg, device="cpu"), coords,
+                            torch.ones(200, dtype=torch.bool), cfg.grid)
+
+
+def _drive_profile_scatter(rng):
+    from kimera_semantics_tpu_torch.tools import profile_scatter as ps
+    for mode in ("probe", "insert"):
+        ps.warm_up(mode, True, torch.device("cpu"), lambda line: None)
+
+
+@pytest.mark.parametrize("caller", ["integrate", "frame_list",
+                                    "allocate_blocks", "profile_scatter"])
+def test_active_keys_reaching_h2_are_non_negative(caller, monkeypatch):
+    """Each caller that hash.cu's header names (ops/integrate.py's
+    alloc_keys, models/projective.py through insert_frame_list,
+    grid/blocks.py allocate_blocks, tools/profile_scatter.py) masks its
+    keys so that no negative key reaches H2 as an active one, with rays and
+    coordinates that leave a small world."""
+    seen = []
+    real = kernels.hash_insert
+
+    def spy(table_keys, table_slots, block_coords, n_blocks, keys, active,
+            *args, **kw):
+        seen.append(keys[active].clone())
+        return real(table_keys, table_slots, block_coords, n_blocks, keys,
+                    active, *args, **kw)
+    monkeypatch.setattr(kernels, "hash_insert", spy)
+    globals()[f"_drive_{caller}"](np.random.RandomState(11))
+    assert seen and sum(len(k) for k in seen) > 0
+    for k in seen:
+        assert bool((k >= 0).all()), k[k < 0][:8]
