@@ -95,7 +95,24 @@ Phases, each of which must complete:
      extraction; [batched]: fast and merged integrate_frames at B = 8
      against 8 sequential frames and their plain run, K6 once with 8
      cubes;
- 10. report per-stage times, the kernel table (one JSON line), the card's
+ 10. the deployments no earlier phase runs: [simple], the simple
+     integrator built by models/factory.py at the CLI's defaults (K1's full
+     instance at S 180), 4 + 8 frames at max_rays 32768 and one frame of
+     every pixel (307200 rays), each held to its plain run, K1 checked and
+     timed at its shapes; [preset euroc] (COLOR, no labels: the mesh must
+     carry the measured colours; again with --carve-mode projective),
+     [preset uhumans2] (10 m rays in a 14 m room: no camera cube, K6 never,
+     the runs' slots by H1, H1 timed at that key count) and [preset
+     realsense], each `batch --preset NAME` over 4 + 8 npz frames with the
+     PLY and .vxblx, held to its plain run; [cli outputs]: `stream --preset
+     demo` with --mesh-normals --connected-mesh --surface-pc --freespace-pc
+     --stats-jsonl --live-mesh --live-port 0 (one HTTP GET on 127.0.0.1),
+     then `batch --map-in` from a KSDV file and from a .vxblx against the
+     uninterrupted run; [bag pointcloud]: the same frames as an organised
+     PointCloud2 bag (--pointcloud-topic) against the image topics' bag;
+     each prints ms/frame, the device's idle share, the launches per frame
+     and the overflow with its budgets;
+ 11. report per-stage times, the kernel table (one JSON line), the card's
      name and power limit, and last the one-line JSON result.
 
 Exits non-zero, with no result line, on any failure, including when no
@@ -363,11 +380,14 @@ def stage_ms(events, stages, n_frames, outer=None):
             for k in stages}
 
 
-def compare_grids(grid, ref, cfg, exact, label):
+def compare_grids(grid, ref, cfg, exact, label, labels=False,
+                  updated=True):
     """Fail unless `ref` holds the same blocks as `grid` with the same
     counters, and its channels agree block by block (the channels in
-    `exact` bit for bit, the others within FLOAT_RTOL). Returns the largest
-    float difference and the observed voxel count."""
+    `exact` bit for bit, the others within FLOAT_RTOL); with `labels` the
+    observed voxels' MLE labels too; with `updated` the updated flags (a
+    run that meshed as it went has cleared them). Returns the largest
+    float difference, the observed voxel count and the labels seen."""
     import torch
     from kimera_semantics_tpu_torch.grid import blocks
     g = cfg.grid
@@ -402,11 +422,15 @@ def compare_grids(grid, ref, cfg, exact, label):
         else:
             worst = max(worst, max_abs_err(a, b))
     upd_k = grid.updated[s_k]
-    if not torch.equal(upd_k, ref.updated[s_p]) or not bool(upd_k.any()):
+    if updated and (not torch.equal(upd_k, ref.updated[s_p])
+                    or not bool(upd_k.any())):
         fail(f"{label}: updated flags differ")
     dist = blocks.tsdf_distance(grid, cfg.tsdf.truncation_distance)[s_k]
     labs = blocks.mle_labels(grid)[s_k]
     seen = grid.wsum[s_k] > 0
+    if labels and not torch.equal(labs[seen],
+                                  blocks.mle_labels(ref)[s_p][seen]):
+        fail(f"{label}: the MLE labels differ")
     if not bool(torch.isfinite(dist).all()) or int(labs.max()) >= g.num_labels:
         fail(f"{label}: readouts out of range")
     return worst, int(seen.sum()), sorted(set(labs[seen].tolist()))
@@ -825,12 +849,8 @@ def literal32_config(kt, cfg):
     """The canonical configuration on 32^3 blocks stored literally: the
     block capacity the CLI gives --storage-vps 32 (clamped to the int32
     segment-key budget of 21 labels)."""
-    from kimera_semantics_tpu_torch.server import node
-    args = node.parse_args(["batch", "unused", "--preset", "demo",
-                            "--method", "projective", "--storage-vps", "32"])
-    with stdout_to_stderr(), contextlib.redirect_stderr(open(os.devnull,
-                                                             "w")):
-        c32, _ = node._build(args)
+    _, c32, _ = cli_build(["batch", "unused", "--preset", "demo",
+                           "--method", "projective", "--storage-vps", "32"])
     return dataclasses.replace(cfg, grid=dataclasses.replace(
         cfg.grid, voxels_per_side=32,
         block_capacity=c32.grid.block_capacity))
@@ -1077,14 +1097,10 @@ def serve_phase(kt, kernels, intr, frames, dev, launches):
     from kimera_semantics_tpu_torch.grid import blocks
     from kimera_semantics_tpu_torch.io import serial
     from kimera_semantics_tpu_torch.ops import mesh as mesh_ops
-    from kimera_semantics_tpu_torch.server import node
     from kimera_semantics_tpu_torch.server.pipeline import (
         SemanticTsdfServer, ServerConfig)
     from kimera_semantics_tpu_torch.utils import timing
-    args = node.parse_args(["stream", "unused", "--preset", "demo"])
-    with stdout_to_stderr(), contextlib.redirect_stderr(open(os.devnull,
-                                                             "w")):
-        cfg, lmap = node._build(args)
+    _, cfg, lmap = cli_build(["stream", "unused", "--preset", "demo"])
     tmp = tempfile.mkdtemp(prefix="ksd_serve_")
     try:
         srv = SemanticTsdfServer(cfg, intr, lmap, ServerConfig(
@@ -2440,6 +2456,832 @@ def syncs_phase(kt, kernels, frames, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The remaining deployments: the simple integrator, the euroc, uhumans2 and
+# realsense presets, the batch CLI's other inputs and outputs
+# ---------------------------------------------------------------------------
+
+DEPLOY_WARM, DEPLOY_FRAMES = 4, 8   # warm-up and timed frames of a phase
+SIMPLE_WIDE_RAYS = 640 * 480        # [simple]: every pixel of one frame
+# The per-frame launches of the fast integrator of a preset, by route:
+# carve_mode "decimated" (the CLI's default) with the camera cube (K1 and
+# K6 for the band and the carve jobs, K5 once, H2 for the runs' insert, H1
+# for the cube); the same without the cube (the runs' slots by H1, K6
+# never); carve_mode "projective" (the dense carve's K1 keys-only walk, K2
+# and K3 and its frame list's H2 and H1, then the band's K1, K6 and K5,
+# the runs' H2 and the cube's H1).
+PRESET_LAUNCHES = {
+    "cube": dict(dda_job_stream=2, slot_resolve_stream=2, block_rmw_add=1,
+                 hash_insert=1, hash_lookup=1),
+    "hash": dict(dda_job_stream=2, block_rmw_add=1, hash_insert=1,
+                 hash_lookup=1),
+    "projective": dict(dda_job_stream=2, block_meta=1,
+                       projective_apply_fused=1, slot_resolve_stream=1,
+                       block_rmw_add=1, hash_insert=2, hash_lookup=2)}
+# [cli outputs]: the demo preset at --block-capacity 512 (4096 storage
+# tiles, a 1.8 GiB grid and KSDV file) in place of the CLI's 4096 (clamped
+# to 16376 tiles, 7.2 GiB): 8 frames fit either.
+CLI_OUT_CAPACITY = 512
+# Each preset phase's budgets in place of the CLI's (segment_budget 262144,
+# block_budget 512), where those overflow on the phase's frames: uhumans2's
+# 10 m rays reduce to more segments and touch more tile groups a frame
+# than they hold from its 10th frame on. preset_phase prints the overflow
+# at the defaults beside them. The simple integrator and the other presets
+# run at the defaults.
+PRESET_BUDGETS = {"euroc": {}, "realsense": {},
+                  "uhumans2": dict(segment_budget=1 << 20, block_budget=2048)}
+PC_TOPIC = "/tesse/depth_cam/mono/points"   # [bag pointcloud]'s cloud topic
+
+
+@contextlib.contextmanager
+def cli_budgets(**pipeline):
+    """The CLI's configuration with the PipelineConfig budgets `pipeline`
+    in place of its defaults (node._build wrapped; the CLI has no flag for
+    most of them)."""
+    from kimera_semantics_tpu_torch.server import node
+    real = node._build
+
+    def build(args):
+        cfg, lmap = real(args)
+        return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+            cfg.pipeline, **pipeline)), lmap
+    node._build = build
+    try:
+        yield
+    finally:
+        node._build = real
+
+
+def cli_build(argv):
+    """The CLI's arguments and node._build's (cfg, label map) for `argv`,
+    its warnings kept off this script's output."""
+    from kimera_semantics_tpu_torch.server import node
+    args = node.parse_args(argv)
+    with stdout_to_stderr(), contextlib.redirect_stderr(open(os.devnull,
+                                                             "w")):
+        cfg, lmap = node._build(args)
+    return args, cfg, lmap
+
+
+def write_frames(path, frames, intr, colors=None):
+    """The frames as a DirectoryDataset (frame_*.npz): depth, pose, and
+    labels, or with `colors` (one (H, W, 3) uint8 array a frame) the
+    measured colours only, from which the dataset derives its labels."""
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "intrinsics.npz"), fx=intr.fx, fy=intr.fy,
+             cx=intr.cx, cy=intr.cy, width=intr.width, height=intr.height)
+    for i, f in enumerate(frames):
+        arrays = dict(depth=f.depth.cpu().numpy(),
+                      T_G_C=f.T_G_C.cpu().numpy())
+        if colors is None:
+            arrays["labels"] = f.labels.cpu().numpy()
+        else:
+            arrays["colors"] = colors[i]
+        np.savez(os.path.join(path, f"frame_{i:05d}.npz"), **arrays)
+
+
+def run_cli(argv, kernels):
+    """node.cmd_batch of `argv` (`stream` or `batch`) with every launch
+    count set to 0 just before and read just after, and the block lookups
+    counted. Returns (server, its JSON dict, counts, lookups)."""
+    import torch
+    from kimera_semantics_tpu_torch.server import node
+    args = node.parse_args(argv)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with stdout_to_stderr(), block_lookups() as lookups:
+        srv, out = node.cmd_batch(args, streaming=argv[0] == "stream")
+    torch.cuda.synchronize()
+    return srv, out, dict(kernels.launches), dict(lookups)
+
+
+def stats_ms(path, n, warm):
+    """Host ms per frame after the first `warm` of `n` frames, from a
+    --stats-jsonl file: each line is written after its frame's
+    integration, which ends in a synchronize (utils/timing). Fails unless
+    the file holds one line per frame, frames 1..n, none overflowing."""
+    rows = [json.loads(line) for line in open(path)]
+    if [r["frame"] for r in rows] != list(range(1, n + 1)) or any(
+            r["overflow"] for r in rows):
+        fail(f"{path}: stats lines {rows}")
+    return 1e3 * (rows[-1]["t_wall_s"] - rows[warm - 1]["t_wall_s"]) / (
+        n - warm)
+
+
+def replay_busy(model, cfg, intr, frames, dev, ms):
+    """The device's busy ms per frame (the union of its activities in a
+    torch.profiler trace) over frames[DEPLOY_WARM:] integrated on a fresh
+    grid after frames[:DEPLOY_WARM], and the idle share of `ms`, the
+    untraced host ms per frame of the same frames."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    grid = blocks.create(cfg, device=dev)
+    for f in frames[:DEPLOY_WARM]:
+        model.integrate_frame(grid, f, cfg, intr, device=dev)
+    torch.cuda.synchronize()
+
+    def loop():
+        for f in frames[DEPLOY_WARM:]:
+            model.integrate_frame(grid, f, cfg, intr, device=dev)
+    busy = busy_ms(trace(loop)) / (len(frames) - DEPLOY_WARM)
+    del grid
+    torch.cuda.empty_cache()
+    return busy, 1.0 - busy / ms
+
+
+def tsdf_by_origin(vxblx, grid, cfg):
+    """{IO block origin: (dist, weight, colour words)} of the grid."""
+    o, dist, wt, col = tsdf_words(vxblx, grid, cfg)
+    return {tuple(x): (dist[i], wt[i], col[i]) for i, x in enumerate(o)}
+
+
+def tsdf_agree(label, a, b, io_vps):
+    """Fail unless two tsdf_by_origin maps hold the same TSDF voxels, by
+    block origin: weights exact, and where observed |dist| within 1e-6 m
+    and colour channels within 1 (a .vxblx stores wsdf = dist * weight and
+    8-bit colours, so a reload rounds each once). A block missing from one
+    map counts as unobserved: a reload keeps only storage tiles with an
+    observed voxel (io/vxblx.py, as the JAX package). Returns (blocks, max
+    dist difference, max colour difference)."""
+    import numpy as np
+    zero = (np.zeros(io_vps ** 3, np.float32),) * 2 + (
+        np.zeros(io_vps ** 3, np.uint32),)
+    col = lambda w: np.stack([(w >> s) & 0xFF for s in (24, 16, 8)]  # noqa: E731
+                             ).astype(np.int64)
+    e_dist = e_col = 0.0
+    for o in set(a) | set(b):
+        (da, wa, ca), (db, wb, cb) = a.get(o, zero), b.get(o, zero)
+        if not np.array_equal(wa, wb):
+            fail(f"{label}: block {o}: the weights differ")
+        seen = wa > 0
+        if seen.any():
+            e_dist = max(e_dist, float(np.abs(da - db)[seen].max()))
+            e_col = max(e_col, float(np.abs(col(ca) - col(cb))[:, seen]
+                                     .max()))
+    if e_dist > 1e-6 or e_col > 1:
+        fail(f"{label}: dist off by {e_dist:g} m, colour by {e_col:g}")
+    return len(set(a) | set(b)), e_dist, e_col
+
+
+def check_vxblx_reload(label, vxblx, grid, cfg, path, dev):
+    """Fail unless the .vxblx at `path` reloads to the grid's TSDF voxels
+    (tsdf_agree). Returns the block count."""
+    return tsdf_agree(f"{label} (.vxblx reload)",
+                      tsdf_by_origin(vxblx, grid, cfg),
+                      tsdf_by_origin(vxblx, vxblx.load_vxblx(path, cfg,
+                                                             device=dev),
+                                     cfg), cfg.grid.io_vps)[0]
+
+
+def capture_calls(kernels, name, fn):
+    """Run fn() with the kernel wrapper `name` recording its arguments
+    (tensors cloned) before each launch; returns the list of (args, kw)."""
+    import torch
+    real, seen = getattr(kernels, name), []
+
+    def rec(*a, **kw):
+        keep = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa: E731
+        seen.append(([keep(x) for x in a],
+                     {k: keep(v) for k, v in kw.items()}))
+        return real(*a, **kw)
+    setattr(kernels, name, rec)
+    try:
+        fn()
+    finally:
+        setattr(kernels, name, real)
+    torch.cuda.synchronize()
+    return seen
+
+
+def simple_phase(kt, kernels, frames, dev, launches, report):
+    """[simple]: the simple integrator at the CLI's defaults (`--method
+    simple`: 0.05 m voxels, 16^3 blocks, 5 m rays, so K1's full instance
+    walks S = 180 steps; max_rays 32768), built through
+    models/factory.py create("simple") and driven over DEPLOY_WARM +
+    DEPLOY_FRAMES frames at the CLI's budgets, which hold the frames: per
+    frame K1, H2 (the runs' insert), H1 (the runs' slots, no camera cube),
+    K5; held to a plain run; K1 checked and timed at the frame's S and R;
+    then one frame of every pixel (max_rays SIMPLE_WIDE_RAYS, 55 M stream
+    entries) at the same budgets, held to its plain run."""
+    import types
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.models import factory, simple
+    _, cfg0, _ = cli_build(["batch", "unused", "--method", "simple"])
+    _, intr = canonical(kt)
+    S = cfg0.resolved_max_steps()
+    n = DEPLOY_WARM + DEPLOY_FRAMES
+    frames = frames[:n]
+    expect = dict(dda_job_stream=1, hash_insert=1, hash_lookup=1,
+                  block_rmw_add=1)
+    cfg, p = cfg0, cfg0.pipeline
+    budgets = (f"the CLI's segment_budget {p.segment_budget}, block_budget "
+               f"{p.block_budget}, stream_active_fraction "
+               f"{p.stream_active_fraction}")
+    integ = factory.create("simple", cfg, intr, device=dev)
+    model = types.SimpleNamespace(
+        __name__="simple (factory)",
+        integrate_frame=lambda g, f, c, i, device: integ.integrate(g, f))
+    grid, counts, ms = drive(model, cfg, intr, frames, DEPLOY_WARM,
+                             DEPLOY_FRAMES, dev, expect)
+    launches["simple"] = counts
+    busy, idle = replay_busy(simple, cfg, intr, frames, dev, ms)
+    ref = blocks.create(cfg, device=dev)
+    plain_run(kernels, simple, ref, cfg, intr, frames, dev)
+    worst, n_seen, labels = compare_grids(grid, ref, cfg, ("sem_count",),
+                                          "simple", labels=True)
+    del ref
+    # K1's full instance at this frame's shapes.
+    calls = capture_calls(kernels, "dda_job_stream", lambda: integ.integrate(
+        grid, frames[0]))
+    if len(calls) != 1:
+        fail(f"simple: K1 launched {len(calls)} times in a frame")
+    k1_args = calls[0][0]
+    R = k1_args[3].shape[1]
+    out_k = kernels.dda_job_stream(*k1_args)
+    out_p = kernels.dda_job_stream_plain(*k1_args)
+    torch.cuda.synchronize()
+    err = check_outputs("K1 (simple)", out_k, out_p, K1_OUTPUTS,
+                        ("w", "wsdf", "wc"))
+    MAXR = out_k[6].shape[0]
+    n_valid = int(out_k[5].sum())
+    del out_k, out_p, grid
+    torch.cuda.empty_cache()
+    report["dda_job_stream"]["simple"] = dict(
+        err=err, R=R, S=k1_args[1], MAXR=MAXR, **kernel_times(
+            "dda_job_stream", lambda: kernels.dda_job_stream(*k1_args),
+            lambda: kernels.dda_job_stream_plain(*k1_args)),
+        bytes=k1_full_bytes(R, k1_args[1], MAXR), ops=R * (60 + 40 * S))
+    print(f"[simple] {DEPLOY_FRAMES} frames (factory.create(\"simple\"), "
+          f"max_rays {cfg.pipeline.max_rays}, S {S}; {budgets}): "
+          f"{ms:.3f} ms/frame host clock; device busy "
+          f"{busy:.3f} ms/frame (trace), idle share {idle:.4f}; launches "
+          f"per frame {per_frame(counts, DEPLOY_FRAMES)}; overflow 0; grid "
+          f"equal to the plain run's (tables, counts and labels exact, "
+          f"floats within {FLOAT_RTOL:g}, max abs {worst:g}); observed "
+          f"voxels {n_seen}, labels {labels}")
+    print(f"[K1 dda_job_stream, simple] R={R} S={k1_args[1]} MAXR={MAXR}: "
+          f"{n_valid} valid steps of {R * k1_args[1]}; ints bit-exact, "
+          f"float max abs err {err:g}")
+
+    # One frame of every pixel: voxblox's simple integrator at full width.
+    wide = dataclasses.replace(cfg0, pipeline=dataclasses.replace(
+        p, max_rays=SIMPLE_WIDE_RAYS))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = blocks.create(wide, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    simple.integrate_frame(g, frames[0], wide, intr, device=dev)
+    torch.cuda.synchronize()
+    wms = 1e3 * (time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    check_launches("simple wide", counts,
+                   {k: expect.get(k, 0) for k in counts})
+    launches["simple wide"] = counts
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if int(g.overflow) != 0:
+        fail(f"simple wide: overflow {int(g.overflow)}")
+    ref = blocks.create(wide, device=dev)
+    plain_run(kernels, simple, ref, wide, intr, frames[:1], dev)
+    worst, n_seen, _ = compare_grids(g, ref, wide, ("sem_count",),
+                                     "simple wide", labels=True)
+    print(f"[simple wide] one frame of {SIMPLE_WIDE_RAYS} rays (S {S}: "
+          f"{SIMPLE_WIDE_RAYS * S} stream entries; {budgets}): {wms:.3f} "
+          f"ms host clock, "
+          f"{peak:.2f} GiB peak device memory past the resident; launches "
+          f"{per_frame(counts, 1)}; n_blocks {int(g.n_blocks)} overflow 0; grid equal to "
+          f"the plain run's (max abs {worst:g}); observed voxels {n_seen}")
+    del g, ref
+    torch.cuda.empty_cache()
+
+
+def per_frame(counts, n):
+    return {k: v / n for k, v in counts.items() if v}
+
+
+def preset_route(kernels, cfg):
+    if cfg.tsdf.carve_mode == "projective":
+        return "projective"
+    return "cube" if kernels.cube_lut_supported(cfg) else "hash"
+
+
+def defaults_overflow(kernels, cfg, intr, frames, dev):
+    """The overflow of `frames` through the fast integrator at `cfg` on a
+    fresh grid (the CLI's budgets, before a phase raises them)."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.models import fast
+    g = blocks.create(cfg, device=dev)
+    for f in frames:
+        fast.integrate_frame(g, f, cfg, intr, device=dev)
+    out = int(g.overflow)
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def preset_phase(kt, kernels, name, frames, dev, launches, extra=(),
+                 colors=None, tag=None):
+    """`batch <npz frames> --preset NAME` (plus `extra`) over
+    DEPLOY_WARM + DEPLOY_FRAMES frames with the PLY, the .vxblx and the
+    stats lines written: the launches per frame of the preset's route
+    (PRESET_LAUNCHES) and the block lookups, no overflow, the PLY and a
+    .vxblx reloading to the grid's TSDF voxels, and the grid held to the
+    same frames through the plain versions on the card. Returns (server,
+    mesh path's (vertices, colors), route) with the temporary directory
+    removed."""
+    import torch
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.io import ply, vxblx
+    from kimera_semantics_tpu_torch.io.dataset import DirectoryDataset
+    from kimera_semantics_tpu_torch.models import fast
+    tag = tag or f"preset {name}"
+    n = len(frames)
+    intr = canonical(kt)[1]
+    tmp = tempfile.mkdtemp(prefix="ksd_preset_")
+    try:
+        d = os.path.join(tmp, "frames")
+        write_frames(d, frames, intr, colors)
+        mesh, vx, st = (os.path.join(tmp, x) for x in ("mesh.ply",
+                                                       "map.vxblx",
+                                                       "stats.jsonl"))
+        argv = ["batch", d, "--preset", name, "--mesh-out", mesh,
+                "--map-out", vx, "--stats-jsonl", st, *extra]
+        _, cfg0, lmap = cli_build(argv)
+        ds = DirectoryDataset(d, label_map=lmap, device=dev)
+        pframes = [ds.frame(i) for i in range(n)]
+        budgets = PRESET_BUDGETS[name]
+        over0 = (defaults_overflow(kernels, cfg0, ds.intr, pframes, dev)
+                 if budgets else None)
+        with cli_budgets(**budgets):
+            srv, out, counts, lookups = run_cli(argv, kernels)
+        cfg = srv.cfg
+        route = preset_route(kernels, cfg)
+        want = {k: n * PRESET_LAUNCHES[route].get(k, 0) for k in counts}
+        check_launches(tag, counts, want, lookups)
+        launches[tag] = counts
+        if out["overflow"] != 0 or out["frames"] != n or \
+                out["triangles"] <= 0:
+            fail(f"{tag}: {out}")
+        verts, cols, tris = ply.read_ply(mesh)
+        if len(tris) != out["triangles"]:
+            fail(f"{tag}: the PLY does not hold the mesh")
+        n_io = check_vxblx_reload(tag, vxblx, srv.grid, cfg, vx, dev)
+        ms = stats_ms(st, n, DEPLOY_WARM)
+        ref = blocks.create(cfg, device=dev)
+        plain_run(kernels, fast, ref, cfg, ds.intr, pframes, dev)
+        worst, n_seen, labels = compare_grids(srv.grid, ref, cfg,
+                                              ("sem_count",), tag,
+                                              labels=True)
+        del ref
+        torch.cuda.empty_cache()
+        busy, idle = replay_busy(fast, cfg, ds.intr, pframes, dev, ms)
+        p, t = cfg.pipeline, cfg.tsdf
+        print(f"[{tag}] batch --preset {name} {' '.join(extra)} (fast, "
+              f"carve_mode {t.carve_mode}, route {route}, "
+              f"{cfg.semantic.color_mode.value} colour, dynamic labels "
+              f"{list(cfg.semantic.dynamic_labels)}, {cfg.grid.voxel_size} m "
+              f"voxels, {t.max_ray_length_m} m rays, V3={cfg.grid.vps3} "
+              f"storage of {cfg.grid.io_vps}^3 blocks, capacity "
+              f"{cfg.grid.block_capacity}; max_rays {p.max_rays}, "
+              f"carve_budget {p.carve_budget}, segment_budget "
+              f"{p.segment_budget}, block_budget {p.block_budget}"
+              + (f"; overflow {over0} over these frames at the CLI's "
+                 f"segment_budget and block_budget, 0 at this phase's "
+                 f"{budgets}" if budgets else ", the CLI's") + "): "
+              f"{DEPLOY_FRAMES} frames at {ms:.3f} "
+              f"ms/frame host clock (stats lines, npz decode on the "
+              f"prefetch thread); device busy {busy:.3f} ms/frame (trace), "
+              f"idle share {idle:.4f}; launches per frame "
+              f"{per_frame(counts, n)} with {sum(lookups.values())} block "
+              f"lookups {lookups}; blocks {out['blocks']} overflow "
+              f"{out['overflow']} dropped_rays {out['dropped_rays']} "
+              f"triangles {out['triangles']}; .vxblx reloads to the same "
+              f"{n_io} blocks' TSDF voxels; grid equal to the plain run's "
+              f"(tables, counts and labels exact, floats within "
+              f"{FLOAT_RTOL:g}, max abs {worst:g}); observed voxels "
+              f"{n_seen}, labels {labels}")
+        return srv, (verts, cols), route, pframes
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def far_world(dev):
+    """The eval world's sphere, cube and ground in a 14 m room (walls at
+    +-7 m): from the orbit most valid depths lie past 5 m, some past 10."""
+    from kimera_semantics_tpu_torch.sim.world import WorldBuilder
+    b = WorldBuilder()
+    b.add_sphere((0.0, 0.0, 1.5), 1.5)
+    for c, nrm in (((-7.0, 0.0, 2.0), (1.0, 0.0, 0.0)),
+                   ((7.0, 0.0, 2.0), (-1.0, 0.0, 0.0)),
+                   ((0.0, -7.0, 2.0), (0.0, 1.0, 0.0)),
+                   ((0.0, 7.0, 2.0), (0.0, -1.0, 0.0))):
+        b.add_plane(c, nrm)
+    b.add_cube((-3.0, -3.0, 1.0), (1.0, 1.0, 2.0))
+    b.add_plane((0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    return b.build(dev)
+
+
+def measured_palette(lmap):
+    """A measured colour per label that is none of the label colours:
+    each channel of the label's colour mapped by c -> (3c + 61) mod 256."""
+    import numpy as np
+    return ((lmap.label_colors.astype(np.int64) * 3 + 61) % 256).astype(
+        np.uint8)
+
+
+def presets_phase(kt, kernels, frames, dev, launches, report):
+    """[preset euroc], [preset uhumans2], [preset realsense]: each preset
+    through the batch CLI (preset_phase). euroc (metric only: COLOR mode,
+    no labels) reads measured colours that are none of the label colours,
+    and its mesh must carry them, not the label colours; it runs a second
+    time with --carve-mode projective (K3's colour channels in a whole
+    frame). uhumans2 (10 m rays) runs on frames of a 14 m room, its camera
+    cube past cube_lut_supported's limit: K6 never launches and H1
+    resolves the runs' slots; H1 is checked and timed at that lookup's
+    key count."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.io.dataset import SyntheticDataset
+    from kimera_semantics_tpu_torch.models import fast
+    n = DEPLOY_WARM + DEPLOY_FRAMES
+    intr = canonical(kt)[1]
+    lmap = kt.LabelColorMap.random(21)
+
+    # euroc: the measured colours of each pixel's label, through a map that
+    # leaves the label palette; the npz frames carry colours only.
+    pal = measured_palette(lmap)
+    colors = [pal[f.labels.cpu().numpy()] for f in frames[:n]]
+    for extra in ((), ("--carve-mode", "projective")):
+        tag = "preset euroc" + (" projective" if extra else "")
+        srv, (verts, cols), route, _ = preset_phase(
+            kt, kernels, "euroc", frames[:n], dev, launches, extra, colors,
+            tag)
+        seen = np.unique(np.concatenate([c.reshape(-1, 3) for c in colors]),
+                         axis=0).astype(np.int64)
+        lab = lmap.label_colors.astype(np.int64)
+
+        def near(palette):
+            d = np.abs(cols.astype(np.int64)[:, None, :]
+                       - palette[None]).max(axis=-1).min(axis=1)
+            return float((d <= 3).mean())
+        m_share, l_share = near(seen), near(lab)
+        if not (m_share >= 0.5 and l_share <= 0.05):
+            fail(f"{tag}: {m_share:.4f} of the mesh's vertex colours lie "
+                 f"within 3 of a measured colour, {l_share:.4f} within 3 of "
+                 "a label colour")
+        print(f"[{tag}] mesh colours: {m_share:.4f} of {len(cols)} vertices "
+              f"within 3 of one of the {len(seen)} measured colours (the "
+              f"blend of measured RGB), {l_share:.4f} within 3 of a label "
+              f"colour")
+        del srv
+        torch.cuda.empty_cache()
+
+    # uhumans2: 10 m rays on frames of the far world.
+    ds = SyntheticDataset(num_frames=n, intr=intr, world=far_world(dev),
+                          label_map=lmap, device=dev)
+    uframes = [ds.frame(i) for i in range(n)]
+    dep = torch.cat([f.depth.reshape(-1) for f in uframes])
+    valid = dep[dep > 0]
+    past5 = float((valid > 5.0).float().mean())
+    past10 = float((valid > 10.0).float().mean())
+    srv, _, route, pframes = preset_phase(kt, kernels, "uhumans2", uframes,
+                                          dev, launches)
+    if route != "hash" or launches["preset uhumans2"]["slot_resolve_stream"]:
+        fail(f"preset uhumans2: route {route}, K6 launched "
+             f"{launches['preset uhumans2']['slot_resolve_stream']} times")
+    cfg = srv.cfg
+    E, side, pad = kernels.cube_geometry(cfg)
+    # H1 at the frame's run-key lookup: the resolve's one call.
+    calls = capture_calls(kernels, "hash_lookup", lambda: fast.integrate_frame(
+        srv.grid, pframes[0], cfg, srv.intr, device=dev))
+    if len(calls) != 1:
+        fail(f"preset uhumans2: H1 launched {len(calls)} times in a frame")
+    args = calls[0][0]
+    tk, ts, keys, T, rounds = args
+    got = kernels.hash_lookup(*args)
+    want = kernels.hash_lookup_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            fail("preset uhumans2: H1 and its plain version differ")
+    probes, hits = probe_work(tk, ts, keys, T, rounds)
+    n_keys, n_active = keys.numel(), int((keys >= 0).sum())
+    report["hash_lookup"]["uhumans2"] = dict(
+        err=0.0, keys=n_keys, **kernel_times(
+            "hash_lookup", lambda: kernels.hash_lookup(*args),
+            lambda: kernels.hash_lookup_plain(*args)),
+        bytes=8 * n_keys + 4 * (probes + hits) + 1,
+        ops=n_keys * 30 + probes * 4)
+    r = report["hash_lookup"]["uhumans2"]
+    print(f"[preset uhumans2] valid depths past 5 m: {past5:.4f}, past 10 "
+          f"m: {past10:.4f}; camera cube side {side} ({pad} cells > 8192: "
+          f"no cube, K6 launched 0 times); the runs' slots by H1: "
+          f"{n_keys} keys ({n_active} valid) in a {T}-entry table, "
+          f"{probes} probes, {hits} hits; H1 {r['ms']:.5f} ms device "
+          f"({r['timed_by']}), plain {r['plain_ms']:.3f} ms; equal to the "
+          f"plain version")
+    print(f"[hash] H1 at the uhumans2 frame's run keys ({n_keys}): "
+          f"{r['ms']:.5f} ms device")
+    del srv, calls, args
+    torch.cuda.empty_cache()
+
+    srv, _, route, _ = preset_phase(kt, kernels, "realsense", frames[:n],
+                                    dev, launches)
+    if route != "cube":
+        fail(f"preset realsense: route {route}")
+    del srv
+    torch.cuda.empty_cache()
+
+
+def cli_outputs_phase(kt, kernels, frames, dev, launches):
+    """[cli outputs]: the demo preset through the CLI's other outputs and
+    inputs, on 8 npz frames. One `stream` run over all 8 with
+    --mesh-normals --connected-mesh --surface-pc --freespace-pc
+    --stats-jsonl --live-mesh and --live-port 0 (the live mesh after the
+    5th frame, fetched once over HTTP from 127.0.0.1); one batch over the
+    first 4 saving a KSDV file (--map-out) and a .vxblx (save_map); then
+    `batch --map-in` over the last 4 from each. The KSDV run must equal
+    the stream run's grid in every channel and table; the .vxblx run its
+    TSDF voxels by block coordinate (the reload's rounding) and hold the
+    last 4 frames' semantic counts."""
+    import numpy as np
+    import torch
+    import urllib.request
+    from kimera_semantics_tpu_torch.grid import blocks
+    from kimera_semantics_tpu_torch.io import ply, vxblx
+    from kimera_semantics_tpu_torch.io.dataset import DirectoryDataset
+    from kimera_semantics_tpu_torch.models import fast
+    from kimera_semantics_tpu_torch.ops import mesh as mesh_ops
+    intr = canonical(kt)[1]
+    n, half = 8, 4
+    tmp = tempfile.mkdtemp(prefix="ksd_outputs_")
+    pj = lambda x: os.path.join(tmp, x)  # noqa: E731
+    try:
+        write_frames(pj("all"), frames[:n], intr)
+        write_frames(pj("first"), frames[:half], intr)
+        write_frames(pj("last"), frames[half:n], intr)
+        common = ["--preset", "demo", "--block-capacity",
+                  str(CLI_OUT_CAPACITY)]
+        srv, out, counts, lookups = run_cli(
+            ["stream", pj("all"), *common, "--mesh-out", pj("mesh.ply"),
+             "--mesh-normals", "--connected-mesh", "--surface-pc",
+             pj("surface.ply"), "--freespace-pc", pj("free.ply"),
+             "--stats-jsonl", pj("stats.jsonl"), "--live-mesh",
+             pj("live.ply"), "--live-port", "0"], kernels)
+        cfg = srv.cfg
+        route = preset_route(kernels, cfg)
+        want = {k: n * PRESET_LAUNCHES[route].get(k, 0) for k in counts}
+        check_launches("cli outputs", counts, want, lookups)
+        launches["cli outputs"] = counts
+        ms = stats_ms(pj("stats.jsonl"), n, half)
+        # The live mesh: one GET of /mesh.ply on the loopback address.
+        port = srv.live_streamer.port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/mesh.ply",
+                                    timeout=30) as resp:
+            body = resp.read()
+        srv.live_streamer.close()
+        live = open(pj("live.ply"), "rb").read()
+        n_live = len(ply.read_ply(pj("live.ply"))[2])
+        if body != live or n_live <= 0 or srv.mesh_cycles != 1:
+            fail(f"cli outputs: the live mesh over HTTP ({len(body)} B) is "
+                 f"not the live PLY ({len(live)} B, {n_live} triangles, "
+                 f"{srv.mesh_cycles} cycles)")
+        # The welded mesh with TSDF-gradient normals.
+        v, c, t, nrm = ply.read_ply(pj("mesh.ply"), with_normals=True)
+        soup = mesh_ops.extract_mesh(srv.grid, cfg, srv.label_map,
+                                     with_normals=True)
+        norm_err = float(np.abs(np.linalg.norm(nrm, axis=1) - 1.0).max()) \
+            if nrm is not None and len(nrm) else float("inf")
+        if not (len(t) == out["triangles"] == soup.num_triangles > 0
+                and len(v) < len(soup.vertices) and norm_err <= 1e-3):
+            fail(f"cli outputs: welded PLY {len(v)} vertices {len(t)} "
+                 f"triangles, soup {len(soup.vertices)} vertices "
+                 f"{soup.num_triangles} triangles, normals off unit length "
+                 f"by {norm_err:g}")
+        n_surf = len(ply.read_ply(pj("surface.ply"))[0])
+        n_free = len(ply.read_ply(pj("free.ply"))[0])
+        if not (n_surf == out["surface_points"] > 0
+                and n_free == out["freespace_points"] > 0):
+            fail(f"cli outputs: pointclouds {n_surf}, {n_free}: {out}")
+        ds = DirectoryDataset(pj("all"), label_map=srv.label_map, device=dev)
+        pframes = [ds.frame(i) for i in range(n)]
+        busy, idle = replay_busy(fast, cfg, ds.intr, pframes, dev, ms)
+        print(f"[cli outputs] stream --preset demo --block-capacity "
+              f"{CLI_OUT_CAPACITY} (capacity {cfg.grid.block_capacity} "
+              f"tiles) with every output over {n} frames: {ms:.3f} ms/frame "
+              f"host clock over the last {n - half} (stats lines); device "
+              f"busy {busy:.3f} ms/frame (trace), idle share {idle:.4f}; "
+              f"launches per frame {per_frame(counts, n)} with "
+              f"{sum(lookups.values())} block lookups {lookups}; overflow "
+              f"{out['overflow']}; welded PLY {len(v)} vertices against the "
+              f"soup's {len(soup.vertices)}, {len(t)} triangles, normals "
+              f"unit within {norm_err:.2e}; surface {n_surf} and free-space "
+              f"{n_free} points; {n} stats lines; live mesh {len(body)} B "
+              f"over HTTP on 127.0.0.1:{port}, equal to the live PLY "
+              f"({n_live} triangles)")
+        del soup
+
+        # The first half, saved both ways.
+        srv_a, out_a, _, _ = run_cli(
+            ["batch", pj("first"), *common, "--mesh-out", "", "--map-out",
+             pj("a.ksdv")], kernels)
+        srv_a.save_map(pj("a.vxblx"))
+        ksdv_gib = os.path.getsize(pj("a.ksdv")) / 2**30
+        # --map-in a.ksdv: the grid and its table verbatim.
+        srv_b, out_b, counts_b, lookups_b = run_cli(
+            ["batch", pj("last"), *common, "--mesh-out", "", "--map-in",
+             pj("a.ksdv")], kernels)
+        check_launches("cli map-in ksdv", counts_b, {
+            k: half * PRESET_LAUNCHES[route].get(k, 0) for k in counts_b},
+            lookups_b)
+        launches["cli map-in ksdv"] = counts_b
+        worst, n_seen, _ = compare_grids(srv_b.grid, srv.grid, cfg,
+                                         ("sem_count",), "cli map-in ksdv",
+                                         labels=True, updated=False)
+        del srv_b
+        torch.cuda.empty_cache()
+        # --map-in a.vxblx: the TSDF layer only, the table rebuilt by H2
+        # (io/vxblx.py allocate_blocks) and looked up once (H1).
+        srv_c, out_c, counts_c, lookups_c = run_cli(
+            ["batch", pj("last"), *common, "--mesh-out", "", "--map-in",
+             pj("a.vxblx")], kernels)
+        want_c = {k: half * PRESET_LAUNCHES[route].get(k, 0)
+                  for k in counts_c}
+        want_c["hash_insert"] += 1
+        check_launches("cli map-in vxblx", counts_c, want_c, lookups_c)
+        launches["cli map-in vxblx"] = counts_c
+        if out_c["overflow"] != 0:
+            fail(f"cli map-in vxblx: {out_c}")
+        n_union, e_dist, e_col = tsdf_agree(
+            "cli map-in vxblx", tsdf_by_origin(vxblx, srv.grid, cfg),
+            tsdf_by_origin(vxblx, srv_c.grid, cfg), cfg.grid.io_vps)
+        # Its semantic counts: the last 4 frames' (the file has no labels).
+        coords = srv_c.grid.block_coords[:int(srv_c.grid.n_blocks)]
+        g = cfg.grid
+        s_c = blocks.lookup_slots(srv_c.grid, coords, g).long()
+        s_u = blocks.lookup_slots(srv.grid, coords, g).long()
+        s_a = blocks.lookup_slots(srv_a.grid, coords, g).long()
+        if bool((s_u >= g.block_capacity).any()):
+            fail("cli map-in vxblx: a block the uninterrupted run lacks")
+        pad = torch.cat([srv_a.grid.sem_count,
+                         torch.zeros_like(srv_a.grid.sem_count[:1])])
+        s_a = torch.where(s_a < g.block_capacity, s_a, pad.shape[0] - 1)
+        if not torch.equal(srv_c.grid.sem_count[s_c],
+                           srv.grid.sem_count[s_u] - pad[s_a]):
+            fail("cli map-in vxblx: the semantic counts are not the last "
+                 f"{half} frames'")
+        print(f"[cli outputs] --map-out a.ksdv ({ksdv_gib:.2f} GiB) after "
+              f"the first {half} frames, then batch --map-in over the last "
+              f"{half}: the KSDV run equals the uninterrupted run (tables, "
+              f"counts and labels exact, floats max abs {worst:g}; observed "
+              f"voxels {n_seen}); launches {counts_b}. The .vxblx run "
+              f"(table rebuilt by H2, {int(srv_c.grid.n_blocks)} tiles "
+              f"against {int(srv.grid.n_blocks)}) equals it in the TSDF "
+              f"voxels of {n_union} blocks by coordinate "
+              f"(weights exact, dist within {e_dist:.2e} m, colour within "
+              f"{e_col:g}); its semantic counts are the last {half} frames' "
+              f"exactly; launches {counts_c}")
+        del srv, srv_a, srv_c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def encode_cloud(trb, stamp, frame_id, xyz, rgb):
+    """An organised XYZRGB sensor_msgs/PointCloud2 (the encoder of
+    tests/test_torch_rosbag.py; neither package has one)."""
+    import struct
+    import numpy as np
+    h, w = xyz.shape[:2]
+    fields = [("x", 0, 7), ("y", 4, 7), ("z", 8, 7), ("rgb", 16, 7)]
+    step = 32
+    buf = trb._ser_header(stamp, frame_id) + struct.pack("<II", h, w)
+    buf += struct.pack("<I", len(fields))
+    for name, off, dt in fields:
+        buf += trb._ser_string(name) + struct.pack("<IBI", off, dt, 1)
+    packed = ((rgb[..., 0].astype(np.uint32) << 16)
+              | (rgb[..., 1].astype(np.uint32) << 8)
+              | rgb[..., 2].astype(np.uint32))
+    pts = np.zeros((h, w, step // 4), np.float32)
+    pts[..., 0:3] = xyz
+    pts[..., 4] = packed.view(np.float32)
+    data = pts.tobytes()
+    buf += struct.pack("<BII", 0, step, step * w)
+    return buf + struct.pack("<I", len(data)) + data + b"\x01"
+
+
+def bag_pointcloud_phase(kt, kernels, frames, dev, launches):
+    """[bag pointcloud]: the frames written twice as a .bag on the rosbag
+    preset's topics, once as 16UC1 depth and rgb8 semantic images and once
+    as an organised XYZRGB PointCloud2 (z the same millimetre depths, rgb
+    the semantic colours), then `batch <bag> --preset rosbag` on each, the
+    second with --pointcloud-topic: the two grids equal bit for bit."""
+    import numpy as np
+    import torch
+    from kimera_semantics_tpu_torch.core import camera as cam
+    from kimera_semantics_tpu_torch.io import rosbag
+    from kimera_semantics_tpu_torch.models import fast
+    intr = canonical(kt)[1]
+    lmap = kt.LabelColorMap.random(21)
+    n = DEPLOY_WARM + DEPLOY_FRAMES
+    frames = frames[:n]
+    tmp = tempfile.mkdtemp(prefix="ksd_cloud_")
+    pj = lambda x: os.path.join(tmp, x)  # noqa: E731
+    try:
+        t0 = time.time()
+
+        class Frames:
+            label_map = lmap
+
+            def __init__(self):
+                self.intr = intr
+
+            def __len__(self):
+                return n
+
+            def frame(self, i):
+                return frames[i]
+        rosbag.write_dataset_bag(pj("images.bag"), Frames(),
+                                 depth_topic=ROSBAG_TOPICS[0],
+                                 semantic_topic=ROSBAG_TOPICS[1],
+                                 cam_info_topic=ROSBAG_TOPICS[2])
+        with rosbag.BagWriter(pj("cloud.bag")) as w:
+            for i, f in enumerate(frames):
+                stamp = 100.0 + i / 5.0
+                depth_mm = np.clip(np.round(f.depth.cpu().numpy() * 1000.0),
+                                   0, 65535).astype(np.uint16)
+                depth = torch.as_tensor(depth_mm.astype(np.float32) * 1e-3)
+                pts, _ = cam.backproject(depth, intr)
+                rgb = np.asarray(lmap.colors_from_labels(
+                    f.labels.cpu().numpy())).astype(np.uint8)
+                w.write(PC_TOPIC, "sensor_msgs/PointCloud2", encode_cloud(
+                    rosbag, stamp, "cam", pts.numpy().reshape(
+                        intr.height, intr.width, 3), rgb), stamp)
+                w.write(ROSBAG_TOPICS[2], "sensor_msgs/CameraInfo",
+                        rosbag.encode_camera_info(intr, stamp, "cam"), stamp)
+                T = f.T_G_C.cpu().numpy().astype(np.float64)
+                w.write("/tf", "tf2_msgs/TFMessage", rosbag.encode_tf_message(
+                    [rosbag.TransformStampedMsg(
+                        stamp=stamp, parent="world", child="cam",
+                        qxyzw=rosbag._mat_to_quat(T[:3, :3]),
+                        trans=T[:3, 3])]), stamp)
+        mib = os.path.getsize(pj("cloud.bag")) / 2**20
+        print(f"[bag pointcloud] {n} frames written as images and as an "
+              f"organised PointCloud2 ({mib:.1f} MiB) in "
+              f"{time.time() - t0:.1f} s")
+        img, out_i, _, _ = run_cli(
+            ["batch", pj("images.bag"), "--preset", "rosbag", "--mesh-out",
+             ""], kernels)
+        srv, out, counts, lookups = run_cli(
+            ["batch", pj("cloud.bag"), "--preset", "rosbag",
+             "--pointcloud-topic", PC_TOPIC, "--mesh-out", "",
+             "--stats-jsonl", pj("stats.jsonl")], kernels)
+        cfg = srv.cfg
+        route = preset_route(kernels, cfg)
+        check_launches("bag pointcloud", counts, {
+            k: n * PRESET_LAUNCHES[route].get(k, 0) for k in counts},
+            lookups)
+        launches["bag pointcloud"] = counts
+        if out["overflow"] != 0 or out["frames"] != n:
+            fail(f"bag pointcloud: {out}")
+        worst, n_seen, labels = compare_grids(srv.grid, img.grid, cfg,
+                                              CHANNELS, "bag pointcloud",
+                                              labels=True)
+        ms = stats_ms(pj("stats.jsonl"), n, DEPLOY_WARM)
+        ds = rosbag.RosbagDataset(pj("cloud.bag"), pointcloud_topic=PC_TOPIC,
+                                  cam_info_topic=ROSBAG_TOPICS[2],
+                                  label_map=srv.label_map, device=dev)
+        busy, idle = replay_busy(fast, cfg, ds.intr,
+                                 [ds.frame(i) for i in range(n)], dev, ms)
+        print(f"[bag pointcloud] batch <bag> --preset rosbag "
+              f"--pointcloud-topic {PC_TOPIC} (route {route}): {n - DEPLOY_WARM}"
+              f" frames at {ms:.3f} ms/frame host clock (stats lines, cloud "
+              f"decode on the prefetch thread; the image topics' run "
+              f"{out_i['frames_per_s']:.2f} frames/s over all {n}); device "
+              f"busy {busy:.3f} ms/frame (trace), idle share {idle:.4f}; "
+              f"launches per frame {per_frame(counts, n)} with "
+              f"{sum(lookups.values())} block lookups; overflow "
+              f"{out['overflow']}; grid equal to the image topics' run bit "
+              f"for bit (tables, every channel, labels); observed voxels "
+              f"{n_seen}, labels {labels}")
+        del srv, img
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def deployment_phases(kt, kernels, frames, dev, launches, report):
+    """Phase 10: the deployments no earlier phase runs."""
+    simple_phase(kt, kernels, frames, dev, launches, report)
+    presets_phase(kt, kernels, frames, dev, launches, report)
+    cli_outputs_phase(kt, kernels, frames, dev, launches)
+    bag_pointcloud_phase(kt, kernels, frames, dev, launches)
+
+
 def plain_run(kernels, model, grid, cfg, intr, frames, dev, **frame_kw):
     """The frames through `model` with every kernel's plain version on the
     card; fails if a kernel launched."""
@@ -2797,7 +3639,12 @@ def main() -> int:
     # -- 9. the sharded grid and the batched integrate_frames --------------
     parallel_phases(kt, kernels, frames, dev, launches, smi)
 
-    # -- 10. report ----------------------------------------------------------
+    # -- 10. the deployments no earlier phase runs: the simple integrator,
+    # the euroc, uhumans2 and realsense presets, the CLI's other outputs
+    # and inputs, the PointCloud2 input -----------------------------------
+    deployment_phases(kt, kernels, frames, dev, launches, report)
+
+    # -- 11. report ----------------------------------------------------------
     src, tpu = "kimera_semantics_tpu_torch/csrc/", \
         "kimera_semantics_tpu/ops/pallas_kernels.py:"
     sources = {"dda_job_stream": (src + "dda.cu", tpu + "142"),
@@ -2874,6 +3721,18 @@ def main() -> int:
                 R=v["R"], S=v["S"], max_abs_err=v["err"],
                 **line(name, v, f" (voxel granularity, R={v['R']} "
                                 f"S={v['S']})"))
+        if "simple" in r:
+            v = r["simple"]
+            entry["simple_walk"] = dict(
+                R=v["R"], S=v["S"], max_abs_err=v["err"],
+                **line(name, v, f" (full instance, the simple integrator's "
+                                f"walk, R={v['R']} S={v['S']})"))
+        if "uhumans2" in r:
+            v = r["uhumans2"]
+            entry["uhumans2_runs"] = dict(
+                keys=v["keys"], max_abs_err=v["err"],
+                **line(name, v, f" (the uhumans2 frame's run keys, "
+                                f"{v['keys']} keys)"))
         if "forms" in r:
             entry["forms"] = {f: dict(max_abs_err=v["err"],
                                       **line(name, v, f" ({f})"))

@@ -107,7 +107,9 @@ struct Walk {
       curr[a] = (int)floorf(s3 + 1e-6f);
       const int end_i = (int)floorf(e3 + 1e-6f);
       n_steps += abs(end_i - curr[a]);
-      const float ray = e3 - s3;
+      // end * inv - s3 with the product fused, as XLA:CPU compiles the
+      // reference's kernel (raycast.dda_init with inv)
+      const float ray = __fmaf_rn(en[a], inv, -s3);
       const int sg = ray > 0.f ? 1 : (ray < 0.f ? -1 : 0);
       sgn[a] = sg;
       const float corrected = sg > 0 ? 1.f : 0.f;

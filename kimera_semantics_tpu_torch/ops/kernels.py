@@ -122,7 +122,7 @@ def dda_job_stream_plain(cfg: FusionConfig, S: int, origin3, point3, start3,
     R = point3.shape[1]
     dev = point3.device
     curr, n_steps, sign, t_next, t_step = raycast.dda_init(
-        start3 * c["inv"], end3 * c["inv"])
+        start3, end3, c["inv"])
     ray_valid = job_valid.bool()
     trunc = c["trunc"]
     run_key = torch.full((MAXR, R), -1, dtype=torch.int32, device=dev)

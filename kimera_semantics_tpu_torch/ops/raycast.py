@@ -47,13 +47,19 @@ def setup_rays(origin: torch.Tensor, points_G: torch.Tensor,
     return start * inv, end * inv
 
 
-def dda_init(start3: torch.Tensor, end3: torch.Tensor):
+def dda_init(start3: torch.Tensor, end3: torch.Tensor, inv=None):
     """DDA set-up over (3, R) voxel-unit extents: (curr, n_steps, sign,
-    t_next, t_step)."""
+    t_next, t_step). Given `inv` (1 / voxel size), start3 and end3 are in
+    world units and scaled here, and the ray's extent is end3 * inv -
+    start3 * inv with the first product fused into the subtraction, the
+    form XLA:CPU compiles the reference's DDA kernel to."""
+    end_w = end3
+    if inv is not None:
+        start3, end3 = start3 * inv, end3 * inv
     curr = torch.floor(start3 + GRID_EPS).to(torch.int32)
     end_i = torch.floor(end3 + GRID_EPS).to(torch.int32)
     n_steps = (end_i - curr).abs().sum(dim=0)
-    ray = end3 - start3
+    ray = end3 - start3 if inv is None else fma(end_w, inv, -start3)
     sign = torch.sign(ray).to(torch.int32)
     corrected = torch.clamp(sign, min=0).float()
     zero = ray == 0.0

@@ -1409,3 +1409,153 @@ def test_projective_frame_makes_no_host_sync(cuda):
     assert control
     torch.cuda.synchronize()
     assert int(g.overflow) == 0 and int(g.n_blocks) > 0
+
+
+# ---------------------------------------------------------------------------
+# The remaining deployments: the simple integrator's full walk, the
+# uhumans2-shaped no-cube frame, a COLOR frame, the .vxblx reload's table
+# ---------------------------------------------------------------------------
+
+def deploy_config(voxel_size=0.05, max_ray=5.0, color=False, capacity=2048,
+                  **pipeline):
+    """The presets' grid (16^3 storage tiles of 32^3 blocks, 0.1 m
+    truncation) at `voxel_size` and `max_ray` m rays: at 0.05 m and 5 m a
+    full walk is S = 180 steps."""
+    cfg = config(color=color)
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, voxel_size=voxel_size,
+                                      voxels_per_side=16,
+                                      io_voxels_per_side=32,
+                                      block_capacity=capacity),
+        tsdf=dataclasses.replace(cfg.tsdf, truncation_distance=0.1,
+                                 max_ray_length_m=max_ray),
+        pipeline=dataclasses.replace(cfg.pipeline, **pipeline))
+
+
+def kernel_and_plain_frames(model, cfg, dev, n_frames, world=None):
+    """n_frames through `model` with the kernels and with their plain
+    versions on the card; returns (grid, plain grid, launch counts)."""
+    ds = SyntheticDataset(num_frames=6, intr=INTR, world=world,
+                          label_map=kt.LabelColorMap.random(), device=dev)
+    frames = [ds.frame(i) for i in range(n_frames)]
+    g = blocks.create(cfg, device=dev)
+    kernels.reset_launches()
+    for f in frames:
+        model.integrate_frame(g, f, cfg, INTR, device=dev)
+    counts = dict(kernels.launches)
+    ref = blocks.create(cfg, device=dev)
+    with plain_kernels():
+        for f in frames:
+            model.integrate_frame(ref, f, cfg, INTR, device=dev)
+    return g, ref, counts
+
+
+@pytest.mark.parametrize("R", [32768, 4801])
+def test_dda_full_instance_at_simple_steps(cuda, R):
+    """K1's full instance at the simple integrator's step budget: S 180 at
+    0.05 m voxels and 5 m rays, R 32768 (the CLI's max_rays) and an odd R."""
+    cfg = deploy_config()
+    S = cfg.resolved_max_steps()
+    assert S == 180
+    jobs = dda_jobs(cfg, cuda, R=R, seed=5)
+    got = kernels.dda_job_stream(cfg, S, *jobs)
+    ref = kernels.dda_job_stream_plain(cfg, S, *jobs)
+    assert int(ref[5].sum()) > 10 * R
+    for name, a, b in zip(("key", "local", "w", "wsdf", "wc", "valid",
+                           "run_key", "run_idx"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def test_simple_frame_matches_plain(cuda):
+    """Two simple frames (S 180, slots by hash lookups): K1, H2, H1 and K5
+    once a frame, K6 never; the grid equals the plain run's."""
+    from kimera_semantics_tpu_torch.models import simple
+    cfg = deploy_config(segment_budget=1 << 20, block_budget=2048)
+    g, ref, counts = kernel_and_plain_frames(simple, cfg, cuda, 2)
+    assert counts == dict(
+        dda_job_stream=2, block_meta=0, projective_apply_fused=0,
+        projective_sample_update=0, slot_resolve_stream=0, block_rmw_add=2,
+        add_f32=0, hash_lookup=2, hash_insert=2)
+    assert_same_grid(g, ref, cfg)
+
+
+def test_uhumans2_shaped_frame_takes_no_cube(cuda):
+    """10 m rays at 0.05 m voxels: the camera cube (side 29, 24448 cells)
+    is past cube_lut_supported's limit, so the runs' slots resolve by H1
+    and K6 never launches; the grid equals the plain run's."""
+    from kimera_semantics_tpu_torch.sim.world import WorldBuilder
+    cfg = deploy_config(max_ray=10.0, capacity=8192,
+                        segment_budget=1 << 21, block_budget=4096)
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, carve_mode="decimated"))
+    assert not kernels.cube_lut_supported(cfg)
+    b = WorldBuilder()
+    b.add_sphere((0.0, 0.0, 1.5), 1.5)
+    for c, nrm in (((-7.0, 0.0, 2.0), (1.0, 0.0, 0.0)),
+                   ((7.0, 0.0, 2.0), (-1.0, 0.0, 0.0)),
+                   ((0.0, -7.0, 2.0), (0.0, 1.0, 0.0)),
+                   ((0.0, 7.0, 2.0), (0.0, -1.0, 0.0))):
+        b.add_plane(c, nrm)
+    b.add_plane((0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    g, ref, counts = kernel_and_plain_frames(fast, cfg, cuda, 2,
+                                             world=b.build(cuda))
+    assert counts["slot_resolve_stream"] == 0
+    assert counts["hash_lookup"] == counts["hash_insert"] == 2
+    assert counts["dda_job_stream"] == 4 and counts["block_rmw_add"] == 2
+    assert_same_grid(g, ref, cfg)
+
+
+@pytest.mark.parametrize("carve_mode", ["decimated", "projective"])
+def test_color_frames_match_plain(cuda, carve_mode):
+    """euroc-shaped frames: COLOR mode at 0.1 m voxels, the colour
+    channels through K5 (and K3 under the projective carve), equal to the
+    plain run's."""
+    cfg = deploy_config(voxel_size=0.1, color=True)
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, carve_mode=carve_mode), semantic=dataclasses.replace(
+            cfg.semantic, dynamic_labels=()))
+    g, ref, counts = kernel_and_plain_frames(fast, cfg, cuda, 2)
+    assert counts["block_rmw_add"] == 2
+    assert counts["projective_apply_fused"] == (
+        2 if carve_mode == "projective" else 0)
+    assert bool(g.wcolor.any())
+    assert_same_grid(g, ref, cfg)
+
+
+def test_vxblx_reload_rebuilds_the_table(cuda, tmp_path):
+    """A .vxblx load_map rebuilds the table through H2: every saved
+    storage tile with an observed voxel is found by H1 in the new table
+    (equal to the plain lookup) and holds the saved TSDF weights; nothing
+    else is allocated (the reload keeps observed tiles only)."""
+    from kimera_semantics_tpu_torch.io import vxblx
+    from kimera_semantics_tpu_torch.server.pipeline import SemanticTsdfServer
+    cfg = deploy_config()
+    g, _, _ = kernel_and_plain_frames(fast, cfg, cuda, 2)
+    srv = SemanticTsdfServer(cfg, INTR, device=cuda)
+    srv.grid = g
+    path = str(tmp_path / "m.vxblx")
+    srv.save_map(path)
+    kernels.reset_launches()
+    srv.load_map(path)
+    assert kernels.launches["hash_insert"] == 1
+    h = srv.grid
+    n = int(g.n_blocks)
+    observed = (g.wsum[:n] > 0).any(dim=1)
+    coords = g.block_coords[:n][observed]
+    assert int(h.n_blocks) == coords.shape[0] > 0
+    keys = bhash.pack_block_coords(coords, cfg.grid.world_extent_blocks)
+    T = cfg.grid.table_size
+    got = kernels.hash_lookup(h.table_keys, h.table_slots, keys, T,
+                              bhash.MAX_PROBES)
+    want = kernels.hash_lookup_plain(h.table_keys, h.table_slots, keys, T,
+                                     bhash.MAX_PROBES)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    slots = got[0].long()
+    assert bool((slots >= 0).all()) and bool(
+        (slots < cfg.grid.block_capacity).all())
+    assert torch.equal(h.block_coords[slots], coords)
+    old = blocks.lookup_slots(g, coords, cfg.grid).long()
+    assert torch.equal(h.wsum[slots], g.wsum[old].clamp(
+        max=cfg.tsdf.max_weight))
+    assert len(vxblx.read_sections(path)) == 1
