@@ -1159,13 +1159,14 @@ def serve_phase(kt, kernels, intr, frames, dev, launches):
               f"{st['overflow']} dropped_rays {st['dropped_rays']}; launches "
               f"{counts}; block lookups (H1 launches beyond the "
               f"integrator's) {lookups}")
-        # integrate/<method> ends each frame in a synchronize, so it holds
-        # the device work of the cycles enqueued before it; the rest of the
-        # loop is the cycles' dispatch on the host.
+        # integrate/<method> is a span of host time (utils/timing): the
+        # frames' enqueue and their host syncs, not their device work to
+        # its end; the rest of the synchronized loop holds the cycles'
+        # dispatch, the stalls and the device's drain.
         print(f"[serve split] integrate {1e3 * int_s / n:.3f} ms/frame "
-              f"(utils/timing, synchronized); the rest "
+              f"(utils/timing, host time); the rest "
               f"{1e3 * (sec - int_s) / max(n_cyc, 1):.3f} ms per cycle "
-              f"(dispatch and stalls)")
+              f"(dispatch, stalls and the device's drain)")
 
         # Snapshot check: a cycle dispatched, a frame integrated at once,
         # then collected, equals a synchronous mesh of the grid as it was.
@@ -2558,8 +2559,8 @@ def run_cli(argv, kernels):
 
 def stats_ms(path, n, warm):
     """Host ms per frame after the first `warm` of `n` frames, from a
-    --stats-jsonl file: each line is written after its frame's
-    integration, which ends in a synchronize (utils/timing). Fails unless
+    --stats-jsonl file: each line is written after its frame's counters
+    are read back, which waits for the frame's device work. Fails unless
     the file holds one line per frame, frames 1..n, none overflowing."""
     rows = [json.loads(line) for line in open(path)]
     if [r["frame"] for r in rows] != list(range(1, n + 1)) or any(

@@ -16,6 +16,8 @@ from typing import Iterable, Iterator, TypeVar
 
 import torch
 
+from ..utils import timing
+
 T = TypeVar("T")
 
 _SENTINEL = object()
@@ -50,7 +52,8 @@ def prefetch(iterable: Iterable[T], depth: int = 2,
     t = threading.Thread(target=worker, daemon=True, name="ksd-prefetch")
     t.start()
     while True:
-        item = q.get()
+        with timing.span("server/prefetch_wait"):
+            item = q.get()
         if item is _SENTINEL:
             t.join()
             if err:

@@ -20,6 +20,7 @@ from ..device import resolve
 from ..ops import semantic as sem_ops
 from ..ops import tsdf as tsdf_ops
 from ..ops.reduce import stable_compact_order
+from ..utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,29 +63,35 @@ def frame_from_images(depth, intr=None,
     may be numpy arrays or tensors."""
     del intr  # reserved for rescale handling, as in the reference
     dev = resolve(device)
-    if labels is None:
-        if colors is None or label_map is None:
-            raise ValueError("need labels, or colors + label_map")
-        labels = label_map.labels_from_colors(_host(colors).astype(np.uint8))
-    if colors is None:
-        if label_map is None:
-            raise ValueError("need colors or label_map")
-        colors = label_map.colors_from_labels(_host(labels).astype(np.int32))
-    if T_G_C is None:
-        T_G_C = np.eye(4, dtype=np.float32)
+    with timing.span("server/upload"):
+        if labels is None:
+            if colors is None or label_map is None:
+                raise ValueError("need labels, or colors + label_map")
+            labels = label_map.labels_from_colors(
+                _host(colors).astype(np.uint8))
+        if colors is None:
+            if label_map is None:
+                raise ValueError("need colors or label_map")
+            colors = label_map.colors_from_labels(
+                _host(labels).astype(np.int32))
+        if T_G_C is None:
+            T_G_C = np.eye(4, dtype=np.float32)
 
-    def t(x, dtype):
-        return torch.tensor(_host(x), dtype=dtype, device=dev)
+        def t(x, dtype):
+            return torch.tensor(_host(x), dtype=dtype, device=dev)
 
-    return Frame(depth=t(depth, torch.float32), labels=t(labels, torch.int32),
-                 colors=t(colors, torch.float32), T_G_C=t(T_G_C, torch.float32))
+        # Each copy from pageable host memory returns once it has landed.
+        with timing.span("sync/upload"):
+            return Frame(depth=t(depth, torch.float32),
+                         labels=t(labels, torch.int32),
+                         colors=t(colors, torch.float32),
+                         T_G_C=t(T_G_C, torch.float32))
 
 
-def stage(name: str):
-    """A profiler range "integrate_frame/<name>" around one stage of an
-    integrator's frame; a torch.profiler trace of the frame loop reads each
-    stage's time from it (chip_smoke.py)."""
-    return torch.profiler.record_function(f"integrate_frame/{name}")
+def stage(name: str) -> timing.span:
+    """The span "integrate_frame/<name>" around one stage of an
+    integrator's frame (utils/timing.py)."""
+    return timing.span(f"integrate_frame/{name}")
 
 
 def prepare_points(frame: Frame, intr, cfg):

@@ -35,9 +35,10 @@ from ..ops.integrate import integrate_jobs
 from . import common
 from . import projective as proj_model
 
-# Profiler ranges of integrate_frame in order: the dense carve (with the
-# projective path's own ranges nested in it), the band prepare, then the
-# ray path's.
+# Spans of integrate_frame in order: the dense carve (with the projective
+# path's own spans nested in it), the band prepare (with its parts
+# band/points, band/keep, band/jobs and band/carve_jobs nested in it),
+# then the ray path's.
 STAGES = ("carve", "band") + integrate.STAGES
 
 
@@ -69,23 +70,27 @@ def _band_prepare(frame, cfg, intr, frame_idx=None):
     """Banded prepare for one frame: backproject, octave band keep,
     compact, band jobs. Returns (band_jobs, origin, n_dropped); keeps beyond
     the ray budget are counted, not silently lost."""
-    (pts_C, pts_G, origin, colors, labels, weights, valid,
-     is_clearing) = common.prepare_points(frame, intr, cfg)
-    # Thinning salt: the origin's float bits, and the frame counter so a
-    # camera that does not move still dithers (models/fast.py reference).
-    ob = origin.contiguous().view(torch.int32).to(torch.int64)
-    salt = wrap_i32(ob[0] ^ (ob[1] << 1) ^ (ob[2] << 2))
-    if frame_idx is not None:
-        salt = salt ^ mul_i32(torch.as_tensor(frame_idx), -1640531527)
-    keep = carve_ops.band_octave_keep(pts_C, valid & ~is_clearing, cfg, intr,
-                                      salt=salt)
-    n_dropped = torch.clamp(keep.sum(dtype=torch.int32)
-                            - cfg.pipeline.max_rays, min=0)
-    kept, pts_G, colors, labels, weights, is_clearing = common.compact(
-        keep, cfg.pipeline.max_rays, pts_G, colors, labels, weights,
-        is_clearing)
-    band = carve_ops.band_jobs(origin[None, :], pts_G, weights, labels,
-                               colors, is_clearing, kept, cfg)
+    with common.stage("band/points"):
+        (pts_C, pts_G, origin, colors, labels, weights, valid,
+         is_clearing) = common.prepare_points(frame, intr, cfg)
+    with common.stage("band/keep"):
+        # Thinning salt: the origin's float bits, and the frame counter so
+        # a camera that does not move still dithers (models/fast.py
+        # reference).
+        ob = origin.contiguous().view(torch.int32).to(torch.int64)
+        salt = wrap_i32(ob[0] ^ (ob[1] << 1) ^ (ob[2] << 2))
+        if frame_idx is not None:
+            salt = salt ^ mul_i32(torch.as_tensor(frame_idx), -1640531527)
+        keep = carve_ops.band_octave_keep(pts_C, valid & ~is_clearing, cfg,
+                                          intr, salt=salt)
+        n_dropped = torch.clamp(keep.sum(dtype=torch.int32)
+                                - cfg.pipeline.max_rays, min=0)
+        kept, pts_G, colors, labels, weights, is_clearing = common.compact(
+            keep, cfg.pipeline.max_rays, pts_G, colors, labels, weights,
+            is_clearing)
+    with common.stage("band/jobs"):
+        band = carve_ops.band_jobs(origin[None, :], pts_G, weights, labels,
+                                   colors, is_clearing, kept, cfg)
     return band, origin, n_dropped
 
 
@@ -111,10 +116,12 @@ def _frame_batches(grid, frame, cfg, intr):
     s_band = cfg.pipeline.resolved_band_steps(cfg.grid, cfg.tsdf)
     if cfg.tsdf.carve_mode == "projective":
         return grid, [(band, s_band)], origin
-    plan = carve_ops.plan_carve(cfg, intr)
-    cjobs = carve_ops.carve_jobs(frame.depth, frame.labels, frame.T_G_C,
-                                 intr, cfg, plan)
-    cjobs, dropped = carve_ops.compact_jobs(cjobs, cfg.pipeline.carve_budget)
+    with common.stage("band/carve_jobs"):
+        plan = carve_ops.plan_carve(cfg, intr)
+        cjobs = carve_ops.carve_jobs(frame.depth, frame.labels, frame.T_G_C,
+                                     intr, cfg, plan)
+        cjobs, dropped = carve_ops.compact_jobs(cjobs,
+                                                cfg.pipeline.carve_budget)
     grid.dropped_rays = grid.dropped_rays + dropped
     return grid, [(band, s_band), (cjobs, cfg.pipeline.carve_steps)], origin
 

@@ -23,6 +23,8 @@ import shutil
 import subprocess
 import threading
 
+from ..utils import timing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
@@ -63,25 +65,28 @@ def build_all() -> dict:
     out = build_dir()
     os.makedirs(out, exist_ok=True)
     paths = {n: os.path.join(out, f"lib{n}.so") for n in SOURCES}
-    procs = {}
-    for n, path in paths.items():
-        if os.path.exists(path):
-            continue
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-               os.path.join(CSRC, f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, path)
+    missing = [n for n, path in paths.items() if not os.path.exists(path)]
+    if not missing:
+        return paths
     errors = []
-    for n, (p, tmp, path) in procs.items():
-        log, _ = p.communicate()
-        with open(os.path.join(out, f"{n}.log"), "w") as f:
-            f.write(log)
-        if p.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu:\n{log}")
-        else:
-            os.replace(tmp, path)
+    with timing.span("kernels/build"):
+        procs = {}
+        for n in missing:
+            tmp = f"{paths[n]}.{os.getpid()}.tmp"
+            cmd = [nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+                   os.path.join(CSRC, f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, paths[n])
+        for n, (p, tmp, path) in procs.items():
+            log, _ = p.communicate()
+            with open(os.path.join(out, f"{n}.log"), "w") as f:
+                f.write(log)
+            if p.returncode != 0:
+                errors.append(f"nvcc failed for {n}.cu:\n{log}")
+            else:
+                os.replace(tmp, path)
+    timing.count("kernels/built", len(missing) - len(errors))
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths

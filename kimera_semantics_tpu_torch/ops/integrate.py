@@ -49,6 +49,7 @@ from ..grid import blocks as gblocks
 from ..grid import hash as bhash
 from ..grid.blocks import VoxelGrid
 from ..models.common import stage
+from ..utils import timing
 from . import kernels
 from . import semantic
 from .carve import JobBatch, full_jobs
@@ -425,7 +426,8 @@ def _plain_scatter_apply(grid, cfg, streams, touched_slots, lk,
                       torch.full(lkey.shape, f32(lk.delta),
                                  device=lkey.device))
 
-    grid.updated[touched_slots.long()] = True
+    with timing.span("sync/apply.updated"):
+        grid.updated[touched_slots.long()] = True
     return grid
 
 
@@ -535,7 +537,8 @@ def _segment_scatter_apply(grid, cfg, streams, touched_slots, lab_shift, lk,
             for c in range(3):
                 grid.wcolor[c].view(-1).index_add_(
                     0, okc[cseg].long(), tcol[c][cseg])
-        grid.updated[touched_slots.long()] = True
+        with timing.span("sync/apply.updated"):
+            grid.updated[touched_slots.long()] = True
         grid.overflow = grid.overflow + n_drop
     return grid
 
@@ -584,12 +587,14 @@ def _staged_segment_apply(grid, cfg, ok, sums, touched_slots, lab_shift, lk,
         first = newg & (grank < n_tiles)
         tile_groups = torch.full((n_tiles,), trash_group, dtype=torch.int32,
                                  device=dev)
-        tile_groups[grank[first].long()] = grp[first]
+        with timing.span("sync/stage.tile_groups"):
+            tile_groups[grank[first].long()] = grp[first]
         row = torch.arange(Kb, dtype=torch.int32, device=dev) % 8
         fslots = tile_groups.repeat_interleave(8) * 8 + row
         glut = torch.full((cap // 8 + 2,), n_tiles, dtype=torch.int32,
                           device=dev)
-        glut[grp[first].long()] = grank[first]
+        with timing.span("sync/stage.glut"):
+            glut[grp[first].long()] = grank[first]
 
         st0 = torch.zeros((3, Kb * v3), dtype=torch.float32, device=dev)
         add_sorted_runs(st0, rvox, torch.stack([tw, fma(tw, -trunc, tsdf_s),
@@ -631,11 +636,14 @@ def _staged_segment_apply(grid, cfg, ok, sums, touched_slots, lab_shift, lk,
                 drop = drop + (rank >= P).sum(dtype=torch.int32)
                 cnt_p, drop = clamp_cnt(cnt, drop)
                 sel = has & (rank >= 0) & (rank < P) & in_rows
-                st_sem.index_add_(0, (rank * dump + rvx)[sel].long(),
-                                  fma(cnt_p, 32.0, lb.float())[sel])
+                with timing.span("sync/stage.votes"):
+                    st_sem.index_add_(0, (rank * dump + rvx)[sel].long(),
+                                      fma(cnt_p, 32.0, lb.float())[sel])
             else:
                 sel = in_rows & valid & (lb < L)
-                st_sem.index_add_(0, (lb * dump + rvx)[sel].long(), cnt[sel])
+                with timing.span("sync/stage.votes"):
+                    st_sem.index_add_(0, (lb * dump + rvx)[sel].long(),
+                                      cnt[sel])
             return drop
 
         rank_drop = stage_votes(vox, seg_valid, tcnt, lab, rvox, pos < Kb,
@@ -695,7 +703,8 @@ def _staged_segment_apply(grid, cfg, ok, sums, touched_slots, lab_shift, lk,
             grid.wcolor, fslots, d_w, d_wsdf, d_cnt, None, d_wc,
             lk_delta=lk.delta, d_sem=st_sem.reshape(P, Kb, v3),
             sem_packed_ranks=P if packed else 0)
-        grid.updated[touched_slots.long()] = True
+        with timing.span("sync/apply.updated"):
+            grid.updated[touched_slots.long()] = True
         grid.overflow = (grid.overflow + n_drop + group_overflow + rank_drop
                          + vote_drop + color_drop)
     return grid

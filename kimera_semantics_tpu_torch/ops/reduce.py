@@ -30,6 +30,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import timing
+
 TRASH_KEY = 0x7FFFFFFF
 
 
@@ -108,7 +110,8 @@ def add_sorted_runs(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     entries are adjacent. Each run of equal indices is summed first, left
     to right, and added once: the reference's in-order scatter-add, with
     the same result on every run (no atomics decide an order)."""
-    idx, vals = idx[keep], vals[:, keep]
+    with timing.span("sync/runs.keep"):
+        idx, vals = idx[keep], vals[:, keep]
     n = idx.shape[0]
     if n == 0:
         return
@@ -117,11 +120,14 @@ def add_sorted_runs(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     pos = torch.arange(n, device=idx.device)
     rank = pos - torch.cummax(torch.where(new, pos, 0), dim=0)[0]
     acc = vals
-    for k in range(1, int(rank.max()) + 1):
+    with timing.span("sync/runs.rank_max"):
+        longest = int(rank.max())
+    for k in range(1, longest + 1):
         acc = torch.where(rank == k, acc.roll(1, dims=1) + vals, acc)
     last = torch.ones((n,), dtype=torch.bool, device=idx.device)
     last[:-1] = new[1:]
-    buf.index_add_(1, idx[last].long(), acc[:, last])
+    with timing.span("sync/runs.last"):
+        buf.index_add_(1, idx[last].long(), acc[:, last])
 
 
 def drop_add_(target_flat: torch.Tensor, idx: torch.Tensor,

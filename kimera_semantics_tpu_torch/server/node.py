@@ -444,6 +444,8 @@ def cmd_batch(args, streaming: bool):
     dict). In the reference's order (kimera_semantics_rosbag.cpp:148-167):
     integrate, mesh, then with --esdf the batch ESDF, then the map, the
     ESDF layer appended to a .vxblx."""
+    import torch
+
     from ..device import resolve
     from ..ops import esdf as esdf_ops
     from ..server.pipeline import SemanticTsdfServer, ServerConfig
@@ -479,10 +481,14 @@ def cmd_batch(args, streaming: bool):
               file=sys.stderr)
     if args.map_in:
         srv.load_map(args.map_in)
-    t_run = timing.Timer("run")
-    with _trace(args.trace_dir, dev):
-        n = srv.run(ds, max_frames=args.max_frames)
-    t_run.stop(sync=srv.grid.wsum)
+    with timing.span("run") as t_run:
+        with _trace(args.trace_dir, dev):
+            n = srv.run(ds, max_frames=args.max_frames)
+        if dev.type == "cuda":
+            # The run's one wait for the device: frames_per_s counts the
+            # frames' device work to its end.
+            with timing.span("sync/run.end"):
+                torch.cuda.synchronize(dev)
     mesh = srv.generate_mesh(args.mesh_out)
     out = {"frames": n, "triangles": mesh.num_triangles, **srv.stats(),
            "frames_per_s": n / t_run.elapsed}
@@ -506,7 +512,7 @@ def cmd_batch(args, streaming: bool):
         out["invariants"] = checks.validate_grid(srv.grid, cfg)
     res = None
     if args.esdf:
-        with timing.Timer("esdf/batch"):
+        with timing.span("esdf/batch"):
             res = srv.esdf = esdf_ops.compute_esdf_blocked(
                 srv.grid, cfg, max_dist=args.esdf_max_dist)
         out["esdf_voxels"] = int(res.distance.size)

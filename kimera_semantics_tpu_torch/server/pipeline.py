@@ -9,7 +9,7 @@ SemanticTsdfServer). A frame loop without ROS, with
     is dispatched on the stream and collected on a worker thread),
   - periodic ESDF refreshes (`esdf_every_n_frames`, ops/esdf.py),
   - mesh generation + PLY save, map save/load, pointcloud outputs,
-  - per-phase timing (utils/timing.py).
+  - spans of the frame, the mesh cycle and the outputs (utils/timing.py).
 
 The grid lives on `device` (the card unless the caller asks for the CPU)
 and the integrators update it IN PLACE. A pipelined mesh cycle has
@@ -128,21 +128,23 @@ class SemanticTsdfServer:
             return False
         if stream_time is not None:
             self._last_stream_time = stream_time
-        if self.server_cfg.enable_icp and self._frames_integrated > 0:
-            frame = self._refine_pose(frame)
-        t = timing.Timer(f"integrate/{self.cfg.integrator.value}")
-        self.grid = self.integrator.integrate(self.grid, frame)
-        t.stop(sync=self.grid.wsum)
-        self._frames_integrated += 1
-        n = self.server_cfg.mesh_every_n_frames
-        if n and self._frames_integrated % n == 0:
-            if self.server_cfg.async_mesh:
-                self.update_mesh_async()
-            else:
-                self.update_mesh()
-        ne = self.server_cfg.esdf_every_n_frames
-        if ne and self._frames_integrated % ne == 0:
-            self.update_esdf()
+        # The frame's spans nest in server/frame on this thread; its args,
+        # the frame's number, identifies them in a trace.
+        with timing.span("server/frame", str(self._frames_integrated)):
+            if self.server_cfg.enable_icp and self._frames_integrated > 0:
+                frame = self._refine_pose(frame)
+            with timing.span(f"integrate/{self.cfg.integrator.value}"):
+                self.grid = self.integrator.integrate(self.grid, frame)
+            self._frames_integrated += 1
+            n = self.server_cfg.mesh_every_n_frames
+            if n and self._frames_integrated % n == 0:
+                if self.server_cfg.async_mesh:
+                    self.update_mesh_async()
+                else:
+                    self.update_mesh()
+            ne = self.server_cfg.esdf_every_n_frames
+            if ne and self._frames_integrated % ne == 0:
+                self.update_esdf()
         return True
 
     def run(self, dataset, max_frames: Optional[int] = None) -> int:
@@ -193,7 +195,7 @@ class SemanticTsdfServer:
         from ..core import camera as cam
         from ..ops import icp as icp_ops
         sc = self.server_cfg
-        with timing.Timer("icp/align"):
+        with timing.span("icp/align"):
             pts_C, valid = cam.backproject(frame.depth, self.intr)
             stride = max(1, sc.icp_subsample)
             pts_C, valid = pts_C[::stride], valid[::stride]
@@ -218,7 +220,7 @@ class SemanticTsdfServer:
         (synchronous)."""
         self.join_mesh()
         self._take_retry()
-        with timing.Timer("mesh/update"):
+        with timing.span("mesh/update"):
             out = mesh_ops.extract_mesh(
                 self.grid, self.cfg, self.label_map, only_updated=True,
                 with_normals=self.server_cfg.mesh_normals,
@@ -231,9 +233,9 @@ class SemanticTsdfServer:
         current grid, clear the updated flags, and collect/publish on a
         worker thread while the next frames integrate. A cycle still in
         flight when the next is due stalls the stream (mesh_stall_s)."""
-        t0 = time.perf_counter()
-        self.join_mesh()                       # previous cycle must land
-        self.mesh_stall_s += time.perf_counter() - t0
+        with timing.span("mesh/stall") as stall:
+            self.join_mesh()                   # previous cycle must land
+        self.mesh_stall_s += stall.elapsed
         if self._mesh_retry_updated is not None:
             # The previous cycle could not complete without the grid
             # (budget overflow or more blocks than a page): its blocks
@@ -241,18 +243,20 @@ class SemanticTsdfServer:
             self.update_mesh()
             return
         t_dispatch = time.perf_counter()
-        old_updated = self.grid.updated.clone()
-        collect = mesh_ops.extract_mesh_cycle_async(
-            self.grid, self.cfg, self.label_map, only_updated=True,
-            with_normals=self.server_cfg.mesh_normals,
-            return_blocks=self.mesh_cache is not None,
-            hint_rows=self._mesh_fetch_hint, hold_grid=False,
-            page_blocks=self._mesh_page_hint)
-        self.grid.updated.zero_()
+        with timing.span("mesh/dispatch"):
+            old_updated = self.grid.updated.clone()
+            collect = mesh_ops.extract_mesh_cycle_async(
+                self.grid, self.cfg, self.label_map, only_updated=True,
+                with_normals=self.server_cfg.mesh_normals,
+                return_blocks=self.mesh_cache is not None,
+                hint_rows=self._mesh_fetch_hint, hold_grid=False,
+                page_blocks=self._mesh_page_hint)
+            self.grid.updated.zero_()
         self.mesh_cycles += 1
 
         def work():
-            out = collect()
+            with timing.span("mesh/collect"):
+                out = collect()
             if out is None:
                 self._mesh_retry_updated = old_updated
                 self._mesh_page_hint += 256   # grow the page for the retry
@@ -276,21 +280,22 @@ class SemanticTsdfServer:
             self._mesh_worker = None
 
     def _publish_mesh(self, out) -> mesh_ops.Mesh:
-        if self.mesh_cache is not None:
-            m, meshed_rows, tri_rows = out
-            self.mesh_cache.update(m, meshed_rows, tri_rows)
-            full = self.mesh_cache.full_mesh()
-            if self._live_writer is not None:
-                self._live_writer.write(full)
-            if self.live_streamer is not None:
-                self.live_streamer.publish(
-                    full, version=self.mesh_cache.version,
-                    blocks=self.mesh_cache.num_blocks,
-                    frames=self._frames_integrated)
-        else:
-            m = out
-        for cb in self.mesh_callbacks:
-            cb(m)
+        with timing.span("mesh/publish"):
+            if self.mesh_cache is not None:
+                m, meshed_rows, tri_rows = out
+                self.mesh_cache.update(m, meshed_rows, tri_rows)
+                full = self.mesh_cache.full_mesh()
+                if self._live_writer is not None:
+                    self._live_writer.write(full)
+                if self.live_streamer is not None:
+                    self.live_streamer.publish(
+                        full, version=self.mesh_cache.version,
+                        blocks=self.mesh_cache.num_blocks,
+                        frames=self._frames_integrated)
+            else:
+                m = out
+            for cb in self.mesh_callbacks:
+                cb(m)
         return m
 
     def update_esdf(self):
@@ -298,7 +303,7 @@ class SemanticTsdfServer:
         update cycle): a full block-sparse jump-flooding pass over the
         allocated blocks (ops/esdf.py)."""
         from ..ops import esdf as esdf_ops
-        with timing.Timer("esdf/update"):
+        with timing.span("esdf/update"):
             self.esdf = esdf_ops.compute_esdf_blocked(
                 self.grid, self.cfg, max_dist=self.server_cfg.esdf_max_dist)
         return self.esdf
@@ -307,7 +312,7 @@ class SemanticTsdfServer:
         """Full mesh over all allocated blocks (+ optional PLY save),
         TsdfServer::generateMesh."""
         self.join_mesh()
-        with timing.Timer("mesh/generate"):
+        with timing.span("mesh/generate"):
             m = mesh_ops.extract_mesh(self.grid, self.cfg, self.label_map,
                                       only_updated=False,
                                       with_normals=self.server_cfg.mesh_normals)

@@ -30,13 +30,10 @@ def is_host_sync(name: str) -> bool:
                                   and "Async" not in name)
 
 
-def host_syncs(fn):
-    """Run fn() under a torch.profiler trace. Returns (syncs, launches):
-    the host-syncing CUDA calls made while fn() ran, {name: count}, and
-    the kernel launch calls seen. A trace with no launch saw no runtime
-    call at all, so its empty `syncs` proves nothing. The profiler's own
-    synchronize when it stops falls outside fn()'s range and is not
-    counted."""
+def _traced(fn):
+    """Run fn() under a torch.profiler trace; returns the host events that
+    start while it runs. The profiler's own synchronize when it stops
+    falls outside fn()'s range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     acts = [ProfilerActivity.CPU]
@@ -47,17 +44,50 @@ def host_syncs(fn):
         with profile(activities=acts) as prof:
             with record_function(_RANGE):
                 fn()
-        events = prof.events()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     # the host's span of fn() (the trace also holds its device-side span)
-    span = next(e.time_range for e in events if e.name == _RANGE
-                and e.device_type == DeviceType.CPU)
-    lo, hi = span.start, span.end
+    span = next(e.time_range for e in events if e.name == _RANGE)
+    return [e for e in events
+            if span.start <= e.time_range.start <= span.end]
+
+
+def host_syncs(fn):
+    """Run fn() under a torch.profiler trace. Returns (syncs, launches):
+    the host-syncing CUDA calls made while fn() ran, {name: count}, and
+    the kernel launch calls seen. A trace with no launch saw no runtime
+    call at all, so its empty `syncs` proves nothing."""
     syncs, launches = {}, 0
-    for e in events:
-        if not lo <= e.time_range.start <= hi:
-            continue
+    for e in _traced(fn):
         if is_host_sync(e.name):
             syncs[e.name] = syncs.get(e.name, 0) + 1
         elif e.name in LAUNCH_CALLS:
             launches += 1
     return syncs, launches
+
+
+def sync_sites(fn):
+    """Run fn() under a torch.profiler trace. Returns (declared,
+    undeclared, launches): the host-syncing CUDA calls made while fn() ran
+    by the innermost `sync/` span (utils/timing.py) open at their start,
+    {span name: count}; those in no `sync/` span by the innermost span of
+    the port open there ("(none)" outside every span), {name: count}; and
+    the kernel launch calls seen."""
+    events = _traced(fn)
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if "/" in e.name and e.name != _RANGE]
+    declared, undeclared, launches = {}, {}, 0
+    for e in events:
+        if e.name in LAUNCH_CALLS:
+            launches += 1
+        if not is_host_sync(e.name):
+            continue
+        x = e.time_range.start
+        open_ = [(b - a, name) for a, b, name in spans if a <= x <= b]
+        sync = min((r for r in open_ if r[1].startswith("sync/")),
+                   default=None)
+        if sync is not None:
+            declared[sync[1]] = declared.get(sync[1], 0) + 1
+        else:
+            site = min(open_, default=(0, "(none)"))[1]
+            undeclared[site] = undeclared.get(site, 0) + 1
+    return declared, undeclared, launches

@@ -1559,3 +1559,51 @@ def test_vxblx_reload_rebuilds_the_table(cuda, tmp_path):
     assert torch.equal(h.wsum[slots], g.wsum[old].clamp(
         max=cfg.tsdf.max_weight))
     assert len(vxblx.read_sections(path)) == 1
+
+
+def test_fast_frame_host_syncs_are_declared(cuda):
+    """Every host sync of a fast frame served at the uhumans2 deployment's
+    budgets (10 m rays, TESSE's 720x480 camera, a 14 m room; the
+    benchmark's configuration), its upload included, lies in a sync/ span
+    (utils/timing.py), by the profiler's witness (utils/syncs.py)."""
+    from kimera_semantics_tpu_torch.models.common import (FRAME_FIELDS,
+                                                          frame_from_images)
+    from kimera_semantics_tpu_torch.server import node
+    from kimera_semantics_tpu_torch.server.pipeline import SemanticTsdfServer
+    from kimera_semantics_tpu_torch.sim.world import WorldBuilder
+    from kimera_semantics_tpu_torch.utils import syncs
+    cfg, lmap = node._build(node.parse_args(
+        ["batch", "unused", "--preset", "uhumans2"]))
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, max_rays=140800, carve_budget=240640,
+        segment_budget=1282048, block_budget=2048))
+    intr = kt.PinholeIntrinsics(fx=415.69219381653056, fy=415.69219381653056,
+                                cx=360.0, cy=240.0, width=720, height=480)
+    b = WorldBuilder()
+    b.add_sphere((0.0, 0.0, 1.5), 1.5)
+    for c, nrm in (((-7.0, 0.0, 2.0), (1.0, 0.0, 0.0)),
+                   ((7.0, 0.0, 2.0), (-1.0, 0.0, 0.0)),
+                   ((0.0, -7.0, 2.0), (0.0, 1.0, 0.0)),
+                   ((0.0, 7.0, 2.0), (0.0, -1.0, 0.0))):
+        b.add_plane(c, nrm)
+    b.add_cube((-3.0, -3.0, 1.0), (1.0, 1.0, 2.0))
+    b.add_plane((0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    ds = SyntheticDataset(num_frames=8, intr=intr, world=b.build(cuda),
+                          label_map=lmap, device=cuda)
+    host = [{k: getattr(ds.frame(i), k).cpu().numpy() for k in FRAME_FIELDS}
+            for i in range(5)]
+    srv = SemanticTsdfServer(cfg, intr, lmap, device=cuda)
+
+    def serve(frames):
+        for h in frames:
+            srv.insert_frame(frame_from_images(device=cuda, **h))
+    serve(host[:2])
+    torch.cuda.synchronize()
+    declared, undeclared, launches = syncs.sync_sites(lambda: serve(
+        host[2:]))
+    assert launches > 0
+    assert undeclared == {}, (undeclared, declared)
+    # Four arrays copied from pageable memory a frame.
+    assert declared["sync/upload"] >= 4 * 3, declared
+    assert declared["sync/runs.rank_max"] >= 3, declared
+    assert int(srv.grid.overflow) == 0 and int(srv.grid.dropped_rays) == 0
