@@ -104,7 +104,10 @@ Phases, each of which must complete:
      [preset uhumans2] (10 m rays in a 14 m room: no camera cube, K6 never,
      the runs' slots by H1, H1 timed at that key count) and [preset
      realsense], each `batch --preset NAME` over 4 + 8 npz frames with the
-     PLY and .vxblx, held to its plain run; [cli outputs]: `stream --preset
+     PLY and .vxblx, held to its plain run; [carve jobs]: the decimated
+     carve jobs' three kernels at the uhumans2 cell's shapes, bit for bit
+     against their plain version at two budgets (a frame with corrupt
+     depths among them), then timed; [cli outputs]: `stream --preset
      demo` with --mesh-normals --connected-mesh --surface-pc --freespace-pc
      --stats-jsonl --live-mesh --live-port 0 (one HTTP GET on 127.0.0.1),
      then `batch --map-in` from a KSDV file and from a .vxblx against the
@@ -194,6 +197,8 @@ KERNEL_SYMBOLS = {"dda_job_stream": "dda_kernel",
                   "add_f32": "ksd_add_f32_kernel",
                   "hash_lookup": "hash_lookup_kernel",
                   "hash_insert": "hash_insert_kernel",
+                  # the three kernels of one call (csrc/carve.cu)
+                  "carve_jobs_compact": "carve_",
                   "empty": "empty_kernel"}
 CHANNELS = ("wsum", "wsdf", "sem_count", "sem_delta", "wcolor")
 K1_OUTPUTS = ("key", "local", "w", "wsdf", "wc", "valid", "run_key",
@@ -727,6 +732,9 @@ PROJ_HASH = dict(hash_insert=1, hash_lookup=1)
 # ... per fast or merged frame with the projective carve: the carve's frame
 # list (H2, H1), the runs' insert (H2) and the camera cube's lookup (H1).
 RAY_HASH = dict(hash_insert=2, hash_lookup=2)
+# ... per frame with the decimated carve jobs (carve_mode "decimated", or
+# merged with anti-grazing): their three kernels, one call.
+CARVE_JOBS = dict(carve_jobs_compact=3)
 
 
 # The modules that look blocks up outside the integrators (grid/blocks.py
@@ -784,7 +792,8 @@ MAIN_PATH = {"dda_job_stream": "projective", "block_meta": "projective",
              "projective_sample_update": "cli_vps32",
              "slot_resolve_stream": "fast", "block_rmw_add": "fast",
              "add_f32": "scatter_profile", "hash_lookup": "projective",
-             "hash_insert": "projective"}
+             "hash_insert": "projective",
+             "carve_jobs_compact": "preset uhumans2"}
 
 
 def traced_profile(model, cfg, intr, frames, dev, stages, ms, tag,
@@ -1138,7 +1147,8 @@ def serve_phase(kt, kernels, intr, frames, dev, launches):
         want = dict(dda_job_stream=streams + carve, block_meta=carve,
                     projective_apply_fused=carve,
                     slot_resolve_stream=streams, block_rmw_add=1,
-                    hash_insert=1 + carve, hash_lookup=1 + carve)
+                    hash_insert=1 + carve, hash_lookup=1 + carve,
+                    **(CARVE_JOBS if mode == "decimated" else {}))
         want = {k: want.get(k, 0) * n for k in counts}
         check_launches("serve", counts, want, lookups)
         st = srv.stats()
@@ -1515,13 +1525,15 @@ def bag_icp_phase(kt, kernels, intr, dev, launches):
         launches["bag"] = counts
         cfg, res = srv.cfg, srv.esdf
         esdf_s = timing.get("esdf/batch")[0] - esdf0
-        # Per frame (carve_mode "decimated", the preset's): K1 and K6 for
-        # the band and the carve jobs, K5 once.
+        # Per frame (carve_mode "decimated", the preset's): the carve
+        # jobs' three kernels, K1 and K6 for the band and the carve jobs,
+        # K5 once.
         # H2 and H1 once each (the runs' insert, the cube); the mesh's and
         # the map's block lookups add theirs.
         want = {k: n * dict(dda_job_stream=2, slot_resolve_stream=2,
                             block_rmw_add=1, hash_insert=1,
-                            hash_lookup=1).get(k, 0) for k in counts}
+                            hash_lookup=1, **CARVE_JOBS).get(k, 0)
+                 for k in counts}
         check_launches("bag", counts, want, lookups)
         print(f"[bag] H1 launches: {n} by the integrator, "
               f"{sum(lookups.values())} by block lookups {lookups}")
@@ -1706,6 +1718,8 @@ def sharded_launches(method, cfg, d):
             out["block_rmw_add"] = d
         out["hash_insert"] += d
         out["hash_lookup"] += d * (2 if ag else 1)
+        if streams == 2:
+            out["carve_jobs_compact"] = d * CARVE_JOBS["carve_jobs_compact"]
     return out
 
 
@@ -2465,17 +2479,17 @@ def syncs_phase(kt, kernels, frames, dev):
 DEPLOY_WARM, DEPLOY_FRAMES = 4, 8   # warm-up and timed frames of a phase
 SIMPLE_WIDE_RAYS = 640 * 480        # [simple]: every pixel of one frame
 # The per-frame launches of the fast integrator of a preset, by route:
-# carve_mode "decimated" (the CLI's default) with the camera cube (K1 and
-# K6 for the band and the carve jobs, K5 once, H2 for the runs' insert, H1
-# for the cube); the same without the cube (the runs' slots by H1, K6
-# never); carve_mode "projective" (the dense carve's K1 keys-only walk, K2
+# carve_mode "decimated" (the CLI's default) with the camera cube (the
+# carve jobs' three kernels, K1 and K6 for the band and the carve jobs, K5
+# once, H2 for the runs' insert, H1 for the cube); the same without the
+# cube (the runs' slots by H1, K6 never); carve_mode "projective" (the dense carve's K1 keys-only walk, K2
 # and K3 and its frame list's H2 and H1, then the band's K1, K6 and K5,
 # the runs' H2 and the cube's H1).
 PRESET_LAUNCHES = {
     "cube": dict(dda_job_stream=2, slot_resolve_stream=2, block_rmw_add=1,
-                 hash_insert=1, hash_lookup=1),
+                 hash_insert=1, hash_lookup=1, **CARVE_JOBS),
     "hash": dict(dda_job_stream=2, block_rmw_add=1, hash_insert=1,
-                 hash_lookup=1),
+                 hash_lookup=1, **CARVE_JOBS),
     "projective": dict(dda_job_stream=2, block_meta=1,
                        projective_apply_fused=1, slot_resolve_stream=1,
                        block_rmw_add=1, hash_insert=2, hash_lookup=2)}
@@ -3275,10 +3289,105 @@ def bag_pointcloud_phase(kt, kernels, frames, dev, launches):
     torch.cuda.empty_cache()
 
 
+# The uhumans2 cell's camera (TESSE's left camera, 720x480) and the carve
+# budgets [carve jobs] holds the kernels to: the cell's, and one that drops.
+UHUMANS2_INTR = dict(fx=415.69219381653056, fy=415.69219381653056, cx=360.0,
+                     cy=240.0, width=720, height=480)
+CARVE_BUDGETS = (240640, 4096)
+
+
+def carve_bits_equal(got, want):
+    """The fields of two (JobBatch, dropped) pairs that differ in a bit."""
+    import torch
+    from kimera_semantics_tpu_torch.ops import carve
+    bad = []
+    for f in carve.JOB_FIELDS:
+        a, b = getattr(got[0], f), getattr(want[0], f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad.append(f)
+    if not torch.equal(got[1], want[1]):
+        bad.append("dropped")
+    return bad
+
+
+def carve_phase(kt, kernels, dev, report):
+    """[carve jobs]: the decimated carve jobs' three kernels (csrc/carve.cu)
+    at the uhumans2 cell's shapes (the preset with the cell's budgets,
+    720x480, 10 m rays: 5 levels, 14 chunks, 631005 slots), bit for bit
+    against the plain version on two frames of the 14 m room, the second
+    with NaN, zero, negative, infinite and out-of-range depths, at each of
+    CARVE_BUDGETS; then timed at the cell's budget: the chain's device ms
+    and each kernel's, the bound, the wrapper and the plain version."""
+    import torch
+    from kimera_semantics_tpu_torch.io.dataset import SyntheticDataset
+    from kimera_semantics_tpu_torch.ops import carve
+    _, cfg, lmap = cli_build(["batch", "unused", "--preset", "uhumans2"])
+    intr = kt.PinholeIntrinsics(**UHUMANS2_INTR)
+    plan = carve.plan_carve(cfg, intr)
+    tab = carve.carve_table(plan, intr.height, intr.width)
+    ds = SyntheticDataset(num_frames=2, intr=intr, world=far_world(dev),
+                          label_map=lmap, device=dev)
+    frames = [ds.frame(i) for i in range(2)]
+    d = frames[1].depth.clone()
+    g = torch.Generator(device=dev).manual_seed(16)
+    r = torch.rand(d.shape, generator=g, device=dev)
+    for lo, hi, val in ((0.0, 0.02, float("nan")), (0.02, 0.04, 0.0),
+                        (0.04, 0.05, -1.0), (0.05, 0.06, float("inf")),
+                        (0.06, 0.07, 0.05), (0.07, 0.08, 30.0)):
+        d[(r >= lo) & (r < hi)] = val
+    frames[1] = dataclasses.replace(frames[1], depth=d)
+    for budget in CARVE_BUDGETS:
+        for i, f in enumerate(frames):
+            args = (f.depth, f.labels, f.T_G_C, intr, cfg, plan, budget)
+            before = kernels.launches["carve_jobs_compact"]
+            got = kernels.carve_jobs_compact(*args)
+            if kernels.launches["carve_jobs_compact"] != before + 3:
+                fail("[carve jobs] a call did not launch three kernels")
+            want = kernels.carve_jobs_compact_plain(*args)
+            torch.cuda.synchronize()
+            bad = carve_bits_equal(got, want)
+            if bad:
+                fail(f"[carve jobs] frame {i}, budget {budget}: {bad} "
+                     "differ from the plain version")
+            print(f"[carve jobs] frame {i}, budget {budget}: "
+                  f"{int(want[0].valid.sum())} valid of {tab.total} slots, "
+                  f"dropped {int(want[1])}; every field of every job and "
+                  f"dropped bit for bit the plain version's")
+    f = frames[0]
+    budget = CARVE_BUDGETS[0]
+    args = (f.depth, f.labels, f.T_G_C, intr, cfg, plan, budget)
+    J = min(tab.total, budget)
+    pixels = intr.width * intr.height
+    times = kernel_times("carve_jobs_compact",
+                         lambda: kernels.carve_jobs_compact(*args),
+                         lambda: kernels.carve_jobs_compact_plain(*args))
+    parts = {k: device_time(lambda: kernels.carve_jobs_compact(*args), k,
+                            REPS)
+             for k in ("carve_reach_kernel", "carve_count_kernel",
+                       "carve_write_kernel")}
+    # the depth and label images and T_G_C's 12 words read, J jobs of 17
+    # words and a flag and `dropped` written; ops: about 20 a pixel, 10 a
+    # slot's flag (twice) and 60 a written job
+    report["carve_jobs_compact"] = r = dict(
+        err=0.0, kernels=3, parts=parts, **times,
+        bytes=8 * pixels + 48 + 69 * J + 4,
+        ops=20 * pixels + 20 * tab.total + 60 * J)
+    print(f"[carve jobs] uhumans2 cell, budget {budget}: {r['ms']:.5f} ms "
+          f"device for the three kernels ({r['timed_by']}; "
+          + ", ".join(f"{k} {v:.5f}" if v is not None else f"{k} none"
+                      for k, v in parts.items())
+          + f"), {r['wrapper_ms']:.4f} ms per wrapper call (events); plain "
+          f"{r['plain_ms']:.3f} ms; bound {1e3 * r['bytes'] / BANDWIDTH:.5f}"
+          f" ms ({r['bytes']} B)")
+
+
 def deployment_phases(kt, kernels, frames, dev, launches, report):
     """Phase 10: the deployments no earlier phase runs."""
     simple_phase(kt, kernels, frames, dev, launches, report)
     presets_phase(kt, kernels, frames, dev, launches, report)
+    carve_phase(kt, kernels, dev, report)
     cli_outputs_phase(kt, kernels, frames, dev, launches)
     bag_pointcloud_phase(kt, kernels, frames, dev, launches)
 
@@ -3661,7 +3770,10 @@ def main() -> int:
                "hash_lookup": (src + "hash.cu",
                                "kimera_semantics_tpu/grid/hash.py:72"),
                "hash_insert": (src + "hash.cu",
-                               "kimera_semantics_tpu/grid/hash.py:105")}
+                               "kimera_semantics_tpu/grid/hash.py:105"),
+               # no TPU kernel: XLA ops in the JAX package
+               "carve_jobs_compact": (src + "carve.cu",
+                                      "kimera_semantics_tpu/ops/carve.py:177")}
     # bound_ms is the larger of the bytes' and the operations' time; the
     # measured launch floor rides beside it, and the least time a launch of
     # the kernel can take is the larger of bound_ms and launch_floor_ms.
@@ -3680,7 +3792,7 @@ def main() -> int:
 
     def line(name, r, shape):
         bound, by = bound_of(r)
-        least = max(bound, floor_ms)
+        least = max(bound, floor_ms * r.get("kernels", 1))
         print(f"[kernel] {name}{shape}: {r['ms']:.5f} ms device "
               f"({r['timed_by']}; {r['wrapper_ms']:.4f} ms per wrapper call, "
               f"events); plain {r['plain_ms']:.3f} ms; bound {bound:.5f} ms "

@@ -117,11 +117,8 @@ def _frame_batches(grid, frame, cfg, intr):
     if cfg.tsdf.carve_mode == "projective":
         return grid, [(band, s_band)], origin
     with common.stage("band/carve_jobs"):
-        plan = carve_ops.plan_carve(cfg, intr)
-        cjobs = carve_ops.carve_jobs(frame.depth, frame.labels, frame.T_G_C,
-                                     intr, cfg, plan)
-        cjobs, dropped = carve_ops.compact_jobs(cjobs,
-                                                cfg.pipeline.carve_budget)
+        cjobs, dropped = carve_ops.decimated_jobs(
+            frame.depth, frame.labels, frame.T_G_C, intr, cfg)
     grid.dropped_rays = grid.dropped_rays + dropped
     return grid, [(band, s_band), (cjobs, cfg.pipeline.carve_steps)], origin
 

@@ -231,10 +231,8 @@ def _frame_parts(grid, frame, cfg: FusionConfig, intr: PinholeIntrinsics,
         if apply_proj_carve:
             grid = _maybe_projective_carve(grid, frame, cfg, intr)
         return grid, [(band, s_band)], sem_pts, origin, bdest, full_state
-    plan = carve_ops.plan_carve(cfg, intr)
-    cjobs = carve_ops.carve_jobs(frame.depth, frame.labels, frame.T_G_C,
-                                 intr, cfg, plan)
-    cjobs, dropped = carve_ops.compact_jobs(cjobs, cfg.pipeline.carve_budget)
+    cjobs, dropped = carve_ops.decimated_jobs(frame.depth, frame.labels,
+                                              frame.T_G_C, intr, cfg)
     grid.dropped_rays = grid.dropped_rays + dropped
     return (grid, [(band, s_band), (cjobs, cfg.pipeline.carve_steps)],
             sem_pts, origin, bdest, full_state)

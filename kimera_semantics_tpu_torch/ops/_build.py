@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("dda", "block_meta", "proj_apply", "proj_sample", "slot_resolve",
-           "block_rmw", "add", "hash", "empty")
+           "block_rmw", "add", "hash", "carve", "empty")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

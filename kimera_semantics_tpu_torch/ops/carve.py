@@ -2,11 +2,13 @@
 
 Counterpart: kimera_semantics_tpu/ops/carve.py (JobBatch, full_jobs,
 band_jobs, CarvePlan, plan_carve, carve_jobs, band_octave_keep,
-compact_jobs). A job walks the voxels from `start` to `end` and scores each
-against the surface sample `point` seen from `origin`. Full-resolution rays
-walk only their truncation band; free space is carved by decimated jobs
-from a min-pooled mip of the ray reach, at about one ray per voxel at every
-distance (the analogue of the reference's early ray termination,
+compact_jobs); CarveTable, carve_table and decimated_jobs have none (the
+plan as csrc/carve.cu reads it, and the call into it). A job walks the
+voxels from `start` to `end` and scores each against the surface sample
+`point` seen from `origin`. Full-resolution rays walk only their
+truncation band; free space is carved by decimated jobs from a min-pooled
+mip of the ray reach, at about one ray per voxel at every distance (the
+analogue of the reference's early ray termination,
 semantic_tsdf_integrator_fast.cpp:110-121), or by the dense projective
 carve (models/fast.py).
 
@@ -122,6 +124,68 @@ def plan_carve(cfg: FusionConfig, intr: PinholeIntrinsics) -> CarvePlan:
         chunks.append(tuple((edges[i], edges[i + 1]) for i in range(n)))
     return CarvePlan(levels=tuple(levels), chunks=tuple(chunks),
                      k_max=max(k for k, _, _ in levels))
+
+
+@dataclasses.dataclass(frozen=True)
+class CarveTable:
+    """A plan as the carve kernels read it (csrc/carve.cu), for an H x W
+    image padded to (Hp, Wp), multiples of k_max. Levels k <= 32 have
+    (Hp/k, Wp/k) planes of minimum reach and centre label at
+    planes[log2 k] (-1 where k is no level); past k = 32 the kernels read
+    the 32 x 32 minima at base_off. `chunks` holds one int32 row a chunk
+    in slot order: its first slot, k, the level's Hk and Wk, the plane
+    offset (-1 past 32), and the float32 bits of t0, t1 and the valid
+    threshold t0 + 1e-6 (the comparison torch makes in float32)."""
+    Hp: int
+    Wp: int
+    total: int
+    planes: Tuple[int, ...]
+    base_off: int
+    cells: int
+    chunks: np.ndarray
+
+
+def carve_table(plan: CarvePlan, H: int, W: int) -> CarveTable:
+    """The static table of `plan` at an H x W image: one row a chunk, the
+    slot offsets of carve_jobs's union, which has `total` slots."""
+    km = plan.k_max
+    Hp = ((H + km - 1) // km) * km
+    Wp = ((W + km - 1) // km) * km
+    planes = [-1] * 6
+    cells = 0
+    for (k, _, _) in plan.levels:
+        if k <= 32:
+            planes[k.bit_length() - 1] = cells
+            cells += (Hp // k) * (Wp // k)
+    base_off = -1
+    if km > 32:
+        base_off = cells
+        cells += (Hp // 32) * (Wp // 32)
+    rows, slot = [], 0
+    for (k, _, _), lchunks in zip(plan.levels, plan.chunks):
+        hk, wk = Hp // k, Wp // k
+        off = planes[k.bit_length() - 1] if k <= 32 else -1
+        for (t0, t1c) in lchunks:
+            bounds = np.array([f32(t0), f32(t1c), f32(t0) + f32(1e-6)],
+                              dtype=np.float32)
+            rows.append([slot, k, hk, wk, off,
+                         *bounds.view(np.int32).tolist()])
+            slot += hk * wk
+    return CarveTable(Hp=Hp, Wp=Wp, total=slot, planes=tuple(planes),
+                      base_off=base_off, cells=cells,
+                      chunks=np.array(rows, dtype=np.int32).reshape(-1, 8))
+
+
+def decimated_jobs(depth: torch.Tensor, labels_img: torch.Tensor,
+                   T_G_C: torch.Tensor, intr: PinholeIntrinsics,
+                   cfg: FusionConfig):
+    """The frame's decimated carve jobs compacted to the carve budget,
+    (jobs, n_dropped): ops/kernels.py carve_jobs_compact, whose plain
+    version on the CPU is carve_jobs then compact_jobs."""
+    from . import kernels   # kernels imports this module
+    return kernels.carve_jobs_compact(depth, labels_img, T_G_C, intr, cfg,
+                                      plan_carve(cfg, intr),
+                                      cfg.pipeline.carve_budget)
 
 
 def _min_pool2(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,11 @@ programs (grid/hash.py lookup, insert):
   hash_lookup             H1  csrc/hash.cu          (grid/hash.py lookup, lookup_bounded)
   hash_insert             H2  csrc/hash.cu          (grid/hash.py insert)
 
+and a chain of three with none, the decimated carve jobs and their
+compaction, which the JAX package builds with XLA ops:
+
+  carve_jobs_compact      C1  csrc/carve.cu         (ops/carve.py carve_jobs, compact_jobs)
+
 Each wrapper takes its plain PyTorch version (`*_plain`, same signature)
 only when its tensors lie on the CPU; on CUDA tensors it launches the kernel
 or raises. `launches[name]` counts kernel launches and nothing else.
@@ -28,6 +33,7 @@ or raises. `launches[name]` counts kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ from ..config import ColorMode, FusionConfig
 from ..core.fp import f32, fma, recip
 from ..grid import hash as bhash
 from . import _build
+from . import carve as carve_ops
 from . import projective as proj_ops
 from . import raycast
 from . import tsdf as tsdf_ops
@@ -43,7 +50,7 @@ from . import tsdf as tsdf_ops
 launches = {"dda_job_stream": 0, "block_meta": 0,
             "projective_apply_fused": 0, "projective_sample_update": 0,
             "slot_resolve_stream": 0, "block_rmw_add": 0, "add_f32": 0,
-            "hash_lookup": 0, "hash_insert": 0}
+            "hash_lookup": 0, "hash_insert": 0, "carve_jobs_compact": 0}
 
 
 def reset_launches():
@@ -963,3 +970,100 @@ def hash_insert(table_keys, table_slots, block_coords, n_blocks, keys,
                  _stream(dev)), "hash_insert")
     launches["hash_insert"] += 1
     return tk, ts, bc, nb, overflow
+
+
+# ---------------------------------------------------------------------------
+# The decimated carve jobs, compacted (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+CarveParams = _struct("CarveParams", [
+    "H", "W", "Hp", "Wp", "allow_clear", "use_const_weight", "n_dyn",
+    *(f"dyn{i}" for i in range(MAX_DYNAMIC_LABELS)),
+    *(f"plane{i}" for i in range(6)), "base_off", "n_chunks", "total",
+    "budget", "out_n", "f_cx", "f_cy", "f_ifx", "f_ify", "f_min_ray",
+    "f_max_ray", "f_inf", "f_m_clamp", "f_trunc"])
+_CARVE_TILE = 512              # job slots a CTA of csrc/carve.cu's slot kernels
+CARVE_LAUNCHES = 3             # kernels a carve_jobs_compact call launches
+
+
+def carve_jobs_compact_plain(depth, labels_img, T_G_C, intr, cfg, plan,
+                             budget: int):
+    """Plain version: ops/carve.py carve_jobs, then compact_jobs."""
+    return carve_ops.compact_jobs(carve_ops.carve_jobs(
+        depth, labels_img, T_G_C, intr, cfg, plan), budget)
+
+
+@functools.lru_cache(maxsize=None)
+def _carve_setup(plan, H: int, W: int, device, budget: int, tsdf, dyn,
+                 intr):
+    """What a call launches with, made once per (plan, image size, device,
+    budget, TSDF settings, dynamic labels, camera): the plan's chunk table
+    (ops/carve.py carve_table) and its copy on `device`, so that a frame
+    uploads nothing, the kernels' parameters, the job count J and the
+    slot kernels' CTAs."""
+    if len(dyn) > MAX_DYNAMIC_LABELS:
+        raise ValueError(f"at most {MAX_DYNAMIC_LABELS} dynamic labels")
+    tab = carve_ops.carve_table(plan, H, W)
+    J = min(tab.total, budget)
+    p = CarveParams(
+        H=H, W=W, Hp=tab.Hp, Wp=tab.Wp, allow_clear=int(tsdf.allow_clear),
+        use_const_weight=int(tsdf.use_const_weight), n_dyn=len(dyn),
+        **{f"dyn{i}": d for i, d in enumerate(
+            dyn + (0,) * (MAX_DYNAMIC_LABELS - len(dyn)))},
+        **{f"plane{i}": o for i, o in enumerate(tab.planes)},
+        base_off=tab.base_off, n_chunks=tab.chunks.shape[0],
+        total=tab.total, budget=budget, out_n=J, f_cx=f32(intr.cx),
+        f_cy=f32(intr.cy), f_ifx=recip(intr.fx), f_ify=recip(intr.fy),
+        f_min_ray=f32(tsdf.min_ray_length_m),
+        f_max_ray=f32(tsdf.max_ray_length_m), f_inf=f32(3.0e38),
+        f_m_clamp=f32(2.0 * tsdf.max_ray_length_m + 1.0),
+        f_trunc=f32(tsdf.truncation_distance))
+    return (tab, torch.from_numpy(tab.chunks).to(device), p, J,
+            (tab.total + _CARVE_TILE - 1) // _CARVE_TILE)
+
+
+def carve_jobs_compact(depth, labels_img, T_G_C, intr, cfg: FusionConfig,
+                       plan, budget: int):
+    """One frame's decimated carve jobs compacted to `budget`: (JobBatch of
+    min(slots, budget) jobs, dropped). depth (H, W) float32, labels_img
+    (H, W) int32, T_G_C (4, 4) float32, `plan` from ops/carve.py
+    plan_carve; dropped is a 0-d int32, max(valid slots - budget, 0).
+    Three launches of csrc/carve.cu write the jobs bit for bit as the
+    plain version does, the invalid slots that fill past the valid ones
+    included; nothing is read back to the host."""
+    if _on_cpu(depth):
+        return carve_jobs_compact_plain(depth, labels_img, T_G_C, intr, cfg,
+                                        plan, budget)
+    dev = depth.device
+    H, W = depth.shape
+    _check(depth, "depth", torch.float32, (H, W), dev)
+    _check(labels_img, "labels_img", torch.int32, (H, W), dev)
+    _check(T_G_C, "T_G_C", torch.float32, (4, 4), dev)
+    tab, table, p, J, n_blocks = _carve_setup(
+        plan, H, W, dev, budget, cfg.tsdf,
+        tuple(cfg.semantic.dynamic_labels), intr)
+    # Few allocations (each a torch op on the host): the five (J, 3) fields
+    # as one block, and the kernels' scratch (the planes' minima and
+    # labels, the CTAs' counts: 4-byte words) as one buffer.
+    origin, point, start, end, color = torch.empty(
+        (5, J, 3), dtype=torch.float32, device=dev).unbind(0)
+    weight = torch.empty((J,), dtype=torch.float32, device=dev)
+    label = torch.empty((J,), dtype=torch.int32, device=dev)
+    valid = torch.empty((J,), dtype=torch.bool, device=dev)
+    dropped = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty((2 * tab.cells + n_blocks,), dtype=torch.int32,
+                          device=dev)
+    mplane, lplane, counts = (ctypes.c_void_p(scratch.data_ptr() + 4 * o)
+                              for o in (0, tab.cells, 2 * tab.cells))
+    fn = _build.bind("carve", "ksd_carve_jobs",
+                     (ctypes.c_void_p,) * 4 + (CarveParams,)
+                     + (ctypes.c_void_p,) * 13)
+    _raise_on(fn(*(_ptr(x) for x in (depth, labels_img, T_G_C, table)), p,
+                 mplane, lplane, counts,
+                 *(_ptr(x) for x in (origin, point, start, end, weight,
+                                     label, color, valid, dropped)),
+                 _stream(dev)), "carve_jobs_compact")
+    launches["carve_jobs_compact"] += CARVE_LAUNCHES
+    return carve_ops.JobBatch(origin=origin, point=point, start=start,
+                              end=end, weight=weight, label=label,
+                              color=color, valid=valid), dropped

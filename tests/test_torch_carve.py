@@ -21,6 +21,7 @@ from kimera_semantics_tpu.ops import dedup as jdedup
 import kimera_semantics_tpu_torch as kt
 from kimera_semantics_tpu_torch.ops import carve as tcarve
 from kimera_semantics_tpu_torch.ops import dedup as tdedup
+from kimera_semantics_tpu_torch.ops import kernels
 
 from test_torch_fast import INTR, TINTR, N, configs
 
@@ -85,22 +86,100 @@ def test_ray_jobs_match(frame, kind, carving):
     assert_jobs_equal(tj, jj)
 
 
-@pytest.mark.parametrize("budget", [2048, 300])
-def test_carve_jobs_and_compaction_match(frame, budget):
+@pytest.mark.parametrize("budget,route", [
+    pytest.param(2048, "parts", id="2048"),
+    pytest.param(300, "parts", id="300"),
+    pytest.param(2048, "wrapper", id="wrapper-2048"),
+    pytest.param(300, "wrapper", id="wrapper-300")])
+def test_carve_jobs_and_compaction_match(frame, budget, route):
+    """carve_jobs, then compact_jobs, against the JAX package's; the
+    "wrapper" cases take the frame's one entry point (decimated_jobs, then
+    kernels.carve_jobs_compact, whose CPU path is the plain version)."""
     cj, ct = configs("decimated")
     plan = jcarve.plan_carve(cj, INTR)
     jj = jax.jit(functools.partial(jcarve.carve_jobs, intr=INTR, cfg=cj,
                                    plan=plan))(frame.depth, frame.labels,
                                                frame.T_G_C)
-    tj = tcarve.carve_jobs(T(frame.depth), T(frame.labels), T(frame.T_G_C),
-                           TINTR, ct, tcarve.plan_carve(ct, TINTR))
-    assert_jobs_equal(tj, jj)
     jc, jdrop = jax.jit(functools.partial(jcarve.compact_jobs,
                                           budget=budget))(jj)
-    tc, tdrop = tcarve.compact_jobs(tj, budget)
+    if route == "parts":
+        tj = tcarve.carve_jobs(T(frame.depth), T(frame.labels),
+                               T(frame.T_G_C), TINTR, ct,
+                               tcarve.plan_carve(ct, TINTR))
+        assert_jobs_equal(tj, jj)
+        tc, tdrop = tcarve.compact_jobs(tj, budget)
+    else:
+        ct = dataclasses.replace(ct, pipeline=dataclasses.replace(
+            ct.pipeline, carve_budget=budget))
+        kernels.reset_launches()
+        tc, tdrop = tcarve.decimated_jobs(T(frame.depth), T(frame.labels),
+                                          T(frame.T_G_C), TINTR, ct)
+        assert kernels.launches["carve_jobs_compact"] == 0
     assert_jobs_equal(tc, jc)
+    assert tdrop.dtype == torch.int32 and tdrop.shape == ()
     assert int(tdrop) == int(jdrop)
     assert (int(tdrop) > 0) == (budget < 2048)
+
+
+UHUMANS2 = dict(fx=415.69219381653056, fy=415.69219381653056, cx=360.0,
+                cy=240.0, width=720, height=480)
+
+
+@pytest.mark.parametrize("camera,voxel,max_ray,k_max,total", [
+    (UHUMANS2, 0.05, 10.0, 32, 631005),
+    (dict(fx=40.0, fy=40.0, cx=319.5, cy=239.5, width=640, height=480),
+     0.2, 5.0, 16, None),
+    (dict(fx=320.0, fy=320.0, cx=319.5, cy=239.5, width=641, height=479),
+     0.05, 5.0, 64, None),
+    (dict(fx=600.0, fy=600.0, cx=319.5, cy=239.5, width=640, height=480),
+     0.05, 5.0, 4, None)])
+def test_carve_table_matches_the_plan(camera, voxel, max_ray, k_max, total):
+    """ops/carve.py carve_table, the plan as csrc/carve.cu reads it: one row
+    a chunk in plan order with its level, the level's padded shape and
+    plane, the float32 bounds and threshold torch compares in, and slot
+    offsets that tile the plain carve_jobs union, which has `total` slots
+    at the uhumans2 camera."""
+    _, ct = configs("decimated")
+    ct = dataclasses.replace(
+        ct, grid=dataclasses.replace(ct.grid, voxel_size=voxel),
+        tsdf=dataclasses.replace(ct.tsdf, max_ray_length_m=max_ray),
+        pipeline=dataclasses.replace(ct.pipeline, carve_k_max=k_max,
+                                     carve_steps=32, carve_gamma=1.0))
+    intr = kt.PinholeIntrinsics(**camera)
+    plan = tcarve.plan_carve(ct, intr)
+    H, W = intr.height, intr.width
+    tab = tcarve.carve_table(plan, H, W)
+    km = plan.k_max
+    assert (tab.Hp, tab.Wp) == (-(-H // km) * km, -(-W // km) * km)
+    rows = [(k, t0, t1) for (k, _, _), ch in zip(plan.levels, plan.chunks)
+            for (t0, t1) in ch]
+    assert tab.chunks.shape == (len(rows), 8)
+    bounds = tab.chunks[:, 5:].copy().view(np.float32)
+    slot, cells = 0, 0
+    for row, b, (k, t0, t1) in zip(tab.chunks, bounds, rows):
+        hk, wk = tab.Hp // k, tab.Wp // k
+        assert list(row[:4]) == [slot, k, hk, wk]
+        assert row[4] == (tab.planes[k.bit_length() - 1] if k <= 32 else -1)
+        assert b[0] == np.float32(t0) and b[1] == np.float32(t1)
+        assert b[2] == np.float32(float(np.float32(t0))
+                                  + float(np.float32(1e-6)))
+        slot += hk * wk
+    for i, off in enumerate(tab.planes):
+        k = 1 << i
+        if any(lk == k for lk, _, _ in plan.levels):
+            assert off == cells
+            cells += (tab.Hp // k) * (tab.Wp // k)
+        else:
+            assert off == -1
+    assert tab.base_off == (cells if km > 32 else -1)
+    assert tab.cells == cells + (
+        (tab.Hp // 32) * (tab.Wp // 32) if km > 32 else 0)
+    assert tab.total == slot
+    union = tcarve.carve_jobs(torch.zeros(H, W), torch.zeros(
+        H, W, dtype=torch.int32), torch.eye(4), intr, ct, plan)
+    assert union.valid.shape == (slot,)
+    if total is not None:
+        assert slot == total
 
 
 @pytest.mark.parametrize("density", ["octave", "matched"])

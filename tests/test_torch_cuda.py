@@ -293,7 +293,7 @@ def test_main_path_matches_plain(cuda):
     assert kernels.launches == dict(
         dda_job_stream=3, block_meta=3, projective_apply_fused=3,
         projective_sample_update=0, slot_resolve_stream=0, block_rmw_add=0,
-        add_f32=0, hash_lookup=3, hash_insert=3)
+        add_f32=0, hash_lookup=3, hash_insert=3, carve_jobs_compact=0)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
@@ -566,7 +566,7 @@ def test_unfused_odd_vps_matches_plain(cuda, vps):
     assert kernels.launches == dict(
         dda_job_stream=2, block_meta=2, projective_apply_fused=0,
         projective_sample_update=2, slot_resolve_stream=0, block_rmw_add=2,
-        add_f32=0, hash_lookup=2, hash_insert=2)
+        add_f32=0, hash_lookup=2, hash_insert=2, carve_jobs_compact=0)
     ref = blocks.create(cfg, device=cuda)
     with plain_kernels():
         for f in frames:
@@ -679,8 +679,9 @@ def test_apply_skips_trash_and_padding(cuda, vps, case):
 def test_ray_paths_match_plain(cuda, model, carve_mode):
     """Three frames through the fast or merged integrate_frame: the kernels'
     grid equals the plain versions' grid block for block; K6 launched once
-    per job stream (two in carve_mode "decimated": band and carve jobs) and
-    K5 once per frame."""
+    per job stream (two in carve_mode "decimated": band and carve jobs),
+    K5 once per frame, and in carve_mode "decimated" the carve jobs' three
+    kernels once a frame."""
     cfg = ray_config(carve_mode)
     ds = SyntheticDataset(num_frames=6, intr=INTR,
                           label_map=kt.LabelColorMap.random(), device=cuda)
@@ -694,6 +695,8 @@ def test_ray_paths_match_plain(cuda, model, carve_mode):
     assert kernels.launches["dda_job_stream"] == 3 * (
         streams + (carve_mode == "projective"))
     assert kernels.launches["block_rmw_add"] == 3
+    assert kernels.launches["carve_jobs_compact"] == 3 * 3 * (
+        carve_mode == "decimated")
     # H2 for the runs' insert and H1 for the camera cube, once more each
     # for the projective carve's frame list
     carve = int(carve_mode == "projective")
@@ -1475,7 +1478,7 @@ def test_simple_frame_matches_plain(cuda):
     assert counts == dict(
         dda_job_stream=2, block_meta=0, projective_apply_fused=0,
         projective_sample_update=0, slot_resolve_stream=0, block_rmw_add=2,
-        add_f32=0, hash_lookup=2, hash_insert=2)
+        add_f32=0, hash_lookup=2, hash_insert=2, carve_jobs_compact=0)
     assert_same_grid(g, ref, cfg)
 
 
@@ -1502,6 +1505,7 @@ def test_uhumans2_shaped_frame_takes_no_cube(cuda):
     assert counts["slot_resolve_stream"] == 0
     assert counts["hash_lookup"] == counts["hash_insert"] == 2
     assert counts["dda_job_stream"] == 4 and counts["block_rmw_add"] == 2
+    assert counts["carve_jobs_compact"] == 2 * 3
     assert_same_grid(g, ref, cfg)
 
 
@@ -1607,3 +1611,183 @@ def test_fast_frame_host_syncs_are_declared(cuda):
     assert declared["sync/upload"] >= 4 * 3, declared
     assert declared["sync/runs.rank_max"] >= 3, declared
     assert int(srv.grid.overflow) == 0 and int(srv.grid.dropped_rays) == 0
+
+
+# ---------------------------------------------------------------------------
+# The decimated carve jobs (csrc/carve.cu) against carve_jobs + compact_jobs
+# ---------------------------------------------------------------------------
+
+UHUMANS2_INTR = kt.PinholeIntrinsics(fx=415.69219381653056,
+                                     fy=415.69219381653056, cx=360.0,
+                                     cy=240.0, width=720, height=480)
+
+
+def room14(dev):
+    """The eval world's sphere, cube and ground in a 14 m room (walls at
+    +-7 m), as the benchmark's uhumans2 cell renders it."""
+    from kimera_semantics_tpu_torch.sim.world import WorldBuilder
+    b = WorldBuilder()
+    b.add_sphere((0.0, 0.0, 1.5), 1.5)
+    for c, nrm in (((-7.0, 0.0, 2.0), (1.0, 0.0, 0.0)),
+                   ((7.0, 0.0, 2.0), (-1.0, 0.0, 0.0)),
+                   ((0.0, -7.0, 2.0), (0.0, 1.0, 0.0)),
+                   ((0.0, 7.0, 2.0), (0.0, -1.0, 0.0))):
+        b.add_plane(c, nrm)
+    b.add_cube((-3.0, -3.0, 1.0), (1.0, 1.0, 2.0))
+    b.add_plane((0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    return b.build(dev)
+
+
+def uhumans2_cell_config(**pipeline):
+    """The uhumans2 preset at the benchmark cell's budgets."""
+    from kimera_semantics_tpu_torch.server import node
+    cfg, lmap = node._build(node.parse_args(
+        ["batch", "unused", "--preset", "uhumans2"]))
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, **{**dict(max_rays=140800, carve_budget=240640,
+                                segment_budget=1282048, block_budget=2048),
+                         **pipeline})), lmap
+
+
+def corrupt(frame, cfg, seed):
+    """The frame with NaN, zero, negative, infinite, too-near and too-far
+    depths at 12% of its pixels, and each dynamic label at 5% more."""
+    g = torch.Generator(device=frame.depth.device).manual_seed(seed)
+    r = torch.rand(frame.depth.shape, generator=g,
+                   device=frame.depth.device)
+    d, lab = frame.depth.clone(), frame.labels.clone()
+    far = 3.0 * cfg.tsdf.max_ray_length_m
+    for lo, val in ((0.0, float("nan")), (0.02, 0.0), (0.04, -1.0),
+                    (0.06, float("inf")), (0.08, 0.05), (0.10, far)):
+        d[(r >= lo) & (r < lo + 0.02)] = val
+    for i, dyn in enumerate(cfg.semantic.dynamic_labels):
+        lab[(r >= 0.2 + 0.05 * i) & (r < 0.25 + 0.05 * i)] = dyn
+    return dataclasses.replace(frame, depth=d, labels=lab)
+
+
+def carve_both(frame, intr, cfg, plan, budget):
+    """(kernel's, plain version's) (jobs, dropped) of one frame; the
+    kernel's call launched three kernels."""
+    args = (frame.depth, frame.labels, frame.T_G_C, intr, cfg, plan, budget)
+    before = kernels.launches["carve_jobs_compact"]
+    got = kernels.carve_jobs_compact(*args)
+    assert kernels.launches["carve_jobs_compact"] == before + 3
+    return got, kernels.carve_jobs_compact_plain(*args)
+
+
+def assert_jobs_bits_equal(got, want):
+    for f in carve.JOB_FIELDS:
+        a, b = getattr(got[0], f), getattr(want[0], f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+    assert got[1].dtype == want[1].dtype == torch.int32
+    assert got[1].shape == () and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("budget", [240640, 4096])
+def test_carve_jobs_compact_at_the_uhumans2_cell(cuda, budget):
+    """At the uhumans2 cell's camera, plan (5 levels, 14 chunks, 631005
+    slots) and carve_budget, and at a budget that drops: every field of
+    every job, the invalid ones past the valid included, and `dropped`
+    bit for bit the plain version's, on a rendered frame and on one with
+    corrupt depths and dynamic labels."""
+    cfg, lmap = uhumans2_cell_config()
+    plan = carve.plan_carve(cfg, UHUMANS2_INTR)
+    assert [len(c) for c in plan.chunks] == [6, 4, 2, 1, 1]
+    assert carve.carve_table(plan, 480, 720).total == 631005
+    ds = SyntheticDataset(num_frames=2, intr=UHUMANS2_INTR,
+                          world=room14(cuda), label_map=lmap, device=cuda)
+    for f in (ds.frame(0), corrupt(ds.frame(1), cfg, 1)):
+        got, want = carve_both(f, UHUMANS2_INTR, cfg, plan, budget)
+        assert_jobs_bits_equal(got, want)
+        assert got[0].valid.shape == (budget,)
+        n = int(want[0].valid.sum())
+        assert 0 < n <= budget and (int(want[1]) > 0) == (budget == 4096)
+
+
+@pytest.mark.parametrize("case", ["default", "const_weight", "no_clear",
+                                  "one_level", "k_max_64", "dropping",
+                                  "all_slots"])
+def test_carve_jobs_compact_cases(cuda, case):
+    """The small camera's frames, corrupt depths and dynamic labels
+    included, bit for bit: use_const_weight both ways, allow_clear False,
+    a one-level plan, a k_max past 32 (levels read the 32 x 32 minima), a
+    budget that drops, and one past every slot."""
+    cfg = ray_config("decimated", carve_budget=20000)
+    t, p = cfg.tsdf, cfg.pipeline
+    if case == "const_weight":
+        t = dataclasses.replace(t, use_const_weight=True)
+    elif case == "no_clear":
+        t = dataclasses.replace(t, allow_clear=False)
+    elif case == "one_level":
+        p = dataclasses.replace(p, carve_k_max=1)
+    elif case == "k_max_64":
+        p = dataclasses.replace(p, carve_k_max=64)
+    elif case == "dropping":
+        p = dataclasses.replace(p, carve_budget=512)
+    elif case == "all_slots":
+        p = dataclasses.replace(p, carve_budget=1 << 20)
+    cfg = dataclasses.replace(cfg, tsdf=t, pipeline=p,
+                              semantic=dataclasses.replace(
+                                  cfg.semantic, dynamic_labels=(20, 3)))
+    plan = carve.plan_carve(cfg, INTR)
+    if case == "one_level":
+        assert len(plan.levels) == 1
+    if case == "k_max_64":
+        assert plan.k_max == 64
+    total = carve.carve_table(plan, INTR.height, INTR.width).total
+    ds = SyntheticDataset(num_frames=3, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    for i in range(3):
+        f = corrupt(ds.frame(i), cfg, i) if i else ds.frame(i)
+        got, want = carve_both(f, INTR, cfg, plan, p.carve_budget)
+        assert_jobs_bits_equal(got, want)
+        assert got[0].valid.shape == (min(total, p.carve_budget),)
+
+
+def test_fast_frame_builds_its_carve_jobs_in_one_call(cuda):
+    """A decimated fast frame builds its carve jobs with one
+    carve_jobs_compact call: inside the band/carve_jobs span the profiler
+    sees its three kernel launches and no other launch or host sync, and
+    on the device the three carve kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from kimera_semantics_tpu_torch.utils import syncs
+    cfg = ray_config("decimated")
+    ds = SyntheticDataset(num_frames=4, intr=INTR,
+                          label_map=kt.LabelColorMap.random(), device=cuda)
+    frames = [ds.frame(i) for i in range(3)]
+    g = blocks.create(cfg, device=cuda)
+    for f in frames[:2]:
+        fast.integrate_frame(g, f, cfg, INTR, device=cuda)
+    torch.cuda.synchronize()
+    real, calls = kernels.carve_jobs_compact, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    kernels.carve_jobs_compact = counted
+    kernels.reset_launches()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fast.integrate_frame(g, frames[2], cfg, INTR, device=cuda)
+            torch.cuda.synchronize()
+    finally:
+        kernels.carve_jobs_compact = real
+    assert len(calls) == 1 and kernels.launches["carve_jobs_compact"] == 3
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    span = [e for e in host if e.name == "integrate_frame/band/carve_jobs"]
+    assert len(span) == 1
+    a, b = span[0].time_range.start, span[0].time_range.end
+    inside = [e.name for e in host if a <= e.time_range.start <= b]
+    assert sum(n in syncs.LAUNCH_CALLS for n in inside) == 3, inside
+    assert not any(syncs.is_host_sync(n) for n in inside), inside
+    names = [e.name for e in events if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and "carve_" in e.name]
+    assert sorted(n.split("(")[0].split()[-1] for n in names) == [
+        "carve_count_kernel", "carve_reach_kernel", "carve_write_kernel"]
