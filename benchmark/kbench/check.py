@@ -1,4 +1,5 @@
-"""The output check: the port's fused grid against the plain reference.
+"""The output check: the port's fused grid against the plain reference
+(the configuration's reference module, kbench/spec.py reference).
 
 `numbers` compares a fused grid (the port's, or the control's put in its
 place) with the reference's sums and returns each compared number;
@@ -47,9 +48,10 @@ LIMITS = {"blocks": 0, "weight": 1e-3, "distance_m": 1e-4, "votes": 0,
 
 
 def reference_sums(frames, counts, conf, device, keep_updates=False,
-                   slot_blocks=None, at_counts=None):
+                   slot_blocks=None, at_counts=None, reference=ref):
     """The reference's sums of a run that integrated trajectory frame f
-    counts[f] times, and each frame's work counts (and, with
+    counts[f] times, by the configuration's reference module (`reference`,
+    kbench/spec.py reference), and each frame's work counts (and, with
     keep_updates, each frame's update for the control). Given the port's
     block coordinates by slot (`slot_blocks`), the work counts also hold
     the staging rows each frame needs in the port's slot layout: 8 rows
@@ -68,7 +70,7 @@ def reference_sums(frames, counts, conf, device, keep_updates=False,
     acc_at = new() if at_counts is not None else None
     work, updates = [], []
     for f, frame in enumerate(frames):
-        upd = ref.frame_update(frame, conf, box, device)
+        upd = reference.frame_update(frame, conf, box, device)
         acc.add(upd, counts[f])
         if acc_at is not None:
             acc_at.add(upd, at_counts[f])
@@ -228,13 +230,14 @@ def control_output(updates, order, acc: ref.Accumulated, conf: dict,
 
 
 def judge(out: dict, mesh, cycles: int, frames, order, conf: dict, colors,
-          every: int, device, control: bool):
+          every: int, device, control: bool, reference=ref):
     """The whole output check of a run, the program's state already freed:
     `out` the port's grid (port.output), `mesh` the last mesh it
     published and `cycles` the mesh cycles it dispatched, `order` the
     trajectory frame of every frame it integrated, `every` the frames
-    between mesh cycles (0: none). Returns (compared numbers, the bfloat16
-    control's or None, each trajectory frame's work counts)."""
+    between mesh cycles (0: none), `reference` the configuration's
+    reference module. Returns (compared numbers, the bfloat16 control's
+    or None, each trajectory frame's work counts)."""
     from . import meshref
     F = len(frames)
     counts = collections.Counter(order)
@@ -245,7 +248,8 @@ def judge(out: dict, mesh, cycles: int, frames, order, conf: dict, colors,
     acc, work, updates, acc_at = reference_sums(
         frames, [counts[f] for f in range(F)], conf, device,
         keep_updates=control, slot_blocks=out["blocks"],
-        at_counts=[at[f] for f in range(F)] if every else None)
+        at_counts=[at[f] for f in range(F)] if every else None,
+        reference=reference)
     nums = numbers(out, acc, work, conf)
     cnums = snap = None
     if control:

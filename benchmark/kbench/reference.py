@@ -330,6 +330,27 @@ def band_steps(fu, bu) -> int:
                          / fu["voxel_size"])) + 3
 
 
+def carve_slots(fu, bu, cam) -> int:
+    """The decimated carve jobs' slots, before compaction: each level's
+    (Hp / k) x (Wp / k) centres, once a chunk (carve_jobs's union)."""
+    levels, chunks, km = plan_carve(fu, bu, cam)
+    Hp = ((cam["height"] + km - 1) // km) * km
+    Wp = ((cam["width"] + km - 1) // km) * km
+    return sum((Hp // k) * (Wp // k) * len(c)
+               for (k, _, _), c in zip(levels, chunks))
+
+
+def stream_length(conf: dict) -> int:
+    """The update stream as the port sizes it at the configuration's
+    budgets: each batch compacted to its budget (or to all its slots, if
+    fewer), times its step budget."""
+    fu, bu, cam = conf["fusion"], conf["budgets"], conf["camera"]
+    return (band_steps(fu, bu) * min(cam["height"] * cam["width"],
+                                     bu["max_rays"])
+            + bu["carve_steps"] * min(carve_slots(fu, bu, cam),
+                                      bu["carve_budget"]))
+
+
 class Box:
     """A dense box of voxels: global voxel coordinate -> linear index."""
 
@@ -377,11 +398,7 @@ def frame_update(frame: dict, conf: dict, box: Box, device):
     n_carve = int(cj["valid"].sum())
     carve, drop_carve = first_n(cj, cj["valid"], bu["carve_budget"])
     streams = [(band, band_steps(fu, bu)), (carve, bu["carve_steps"])]
-    # Stream length as the port sizes it: each batch compacted to its
-    # budget (or to all its slots, if fewer).
-    n_stream = (band_steps(fu, bu) * min(depth.numel(), bu["max_rays"])
-                + bu["carve_steps"] * min(cj["valid"].numel(),
-                                          bu["carve_budget"]))
+    n_stream = stream_length(conf)
     vox, wv, wsdf, wc, lab, colw = [], [], [], [], [], []
     for jobs, S in streams:
         v, j, w, ws, g = walk(jobs, S, fu, svps)

@@ -19,8 +19,10 @@ traffic mix (benchmark/traffic/<name>.json). The run:
            host arrays that the port uploads itself;
   trace    with --trace 1, the mix's trace_frames more frames under
            torch.profiler, for the per-layer metrics;
-  check    the port's fused grid against the plain reference
-           (kbench/reference.py), once the program's state is freed.
+  check    the port's fused grid against the configuration's plain
+           reference (kbench/reference.py, or benchmark/references/
+           <name>.py where the configuration names one), once the
+           program's state is freed.
 
 The last line of standard output is one JSON object: correct, attempted,
 failed, metrics (the cell's end-to-end metrics, or with --trace 1 its
@@ -173,7 +175,8 @@ def one_run(args, seed, bench, w, conf, traffic, device, root):
         torch.cuda.empty_cache()
     nums, cnums, work = check.judge(
         out, mesh, cycles, frames, feed.order, conf, colors,
-        traffic["mesh_every_n_frames"], device, args.control)
+        traffic["mesh_every_n_frames"], device, args.control,
+        reference=spec.reference(root, conf))
     del out, mesh
 
     def span(key):

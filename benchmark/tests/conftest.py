@@ -22,27 +22,31 @@ for _p in (BENCH, REPO):
 
 
 def make_root(tmp, extra=None):
-    """A root with the repo's BENCHMARK.json plus the cells tiny.batch and
-    tiny.stream (and `extra`'s entries), its metric readers and kernel
-    counts copied."""
+    """A root with the repo's BENCHMARK.json plus the cells tiny.batch,
+    tiny.stream and tiny_merged.batch (and `extra`'s entries), its metric
+    readers, kernel counts and references copied."""
     root = os.path.join(str(tmp), "root")
     for d in ("configs", "traffic"):
         os.makedirs(os.path.join(root, "benchmark", d))
-    for d in ("metrics", "kernel_counts"):
+    for d in ("metrics", "kernel_counts", "references"):
         shutil.copytree(os.path.join(BENCH, d),
-                        os.path.join(root, "benchmark", d))
-    shutil.copy(os.path.join(DATA, "tiny.json"),
-                os.path.join(root, "benchmark", "configs", "tiny.json"))
+                        os.path.join(root, "benchmark", d),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    for c in ("tiny", "tiny_merged"):
+        shutil.copy(os.path.join(DATA, c + ".json"),
+                    os.path.join(root, "benchmark", "configs", c + ".json"))
     for t in ("tiny_batch", "tiny_stream"):
         shutil.copy(os.path.join(DATA, t + ".json"),
                     os.path.join(root, "benchmark", "traffic", t + ".json"))
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    bench["configs"].append({"name": "tiny", "source": "tests/data",
-                             "file": "benchmark/configs/tiny.json",
-                             "reduced": [], "why": "the CPU tests' size"})
-    for t in ("batch", "stream"):
-        bench["workloads"].append({"name": f"tiny.{t}", "config": "tiny",
+    for c in ("tiny", "tiny_merged"):
+        bench["configs"].append({"name": c, "source": "tests/data",
+                                 "file": f"benchmark/configs/{c}.json",
+                                 "reduced": [], "why": "the CPU tests' size"})
+    for c, t in (("tiny", "batch"), ("tiny", "stream"),
+                 ("tiny_merged", "batch")):
+        bench["workloads"].append({"name": f"{c}.{t}", "config": c,
                                    "traffic": f"tiny_{t}", "chips": 1,
                                    "why": "the CPU tests' size"})
     # The mesh cycle's readers, which no cell of BENCHMARK.json reports

@@ -18,7 +18,9 @@ PORT = "kimera_semantics_tpu_torch"
 # The yardstick: it may import no module of the port.
 REFERENCE = ("kbench/reference.py", "kbench/check.py", "kbench/scene.py",
              "kbench/stats.py", "kbench/roofline.py", "kbench/witness.py",
-             "sweep.py", "witness.py")
+             "sweep.py", "witness.py") + tuple(
+                 "references/" + n for n in sorted(os.listdir(
+                     os.path.join(BENCH, "references"))) if n.endswith(".py"))
 
 
 def _top_levels(code: str) -> set:
@@ -54,6 +56,9 @@ import json, sys
 sys.path[:0] = [{BENCH!r}]
 import kbench.check, kbench.reference, kbench.roofline, kbench.scene
 import kbench.stats, kbench.witness, sweep, witness
+from kbench import spec
+for name in {[n[:-3] for n in REFERENCE if n.startswith("references/")]!r}:
+    spec.reference({REPO!r}, {{"reference": name[len("references/"):]}})
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
     names = _top_levels(code)
